@@ -1,0 +1,225 @@
+"""The port's CUDA kernels against their plain PyTorch versions, on the card.
+
+Every test here needs an NVIDIA GPU (Hopper, for the sm_90a build) and
+skips without one.  The file imports no JAX, so it also runs where JAX is
+not installed; ``tests/conftest.py`` imports JAX, so on such a machine run
+
+    python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from archi_tpu_torch.ops import LAUNCHES
+from archi_tpu_torch.ops.attention import encoder_attention, plain_attention
+from archi_tpu_torch.ops.topk import NEG_INF, fused_topk, plain_topk
+
+pytestmark = pytest.mark.cuda
+
+
+@pytest.fixture
+def dev():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    return torch.device("cuda")
+
+
+def assert_topk_matches(vals, idx, ref_vals, scores, atol):
+    """Tie-aware: scores within atol of the plain version's, and every
+    returned row (distinct) really scores what the kernel reports."""
+    vals, idx, ref_vals = (t.cpu().numpy() for t in (vals, idx, ref_vals))
+    np.testing.assert_allclose(vals, ref_vals, rtol=0, atol=atol)
+    live = vals > -1e29
+    got = np.take_along_axis(scores.cpu().numpy(), idx.astype(np.int64), 1)
+    np.testing.assert_allclose(got[live], vals[live], rtol=0, atol=atol)
+    for row in idx:
+        assert len(set(row.tolist())) == len(row)
+
+
+def _case(dev, b, d, n_pad, n_active, dtype, per_query, seed=0):
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    q = torch.nn.functional.normalize(torch.randn(b, d, generator=g), dim=1)
+    e = torch.nn.functional.normalize(torch.randn(n_pad, d, generator=g), dim=1)
+    if dtype == torch.int8:
+        e = torch.clamp(torch.round(e * 127), -127, 127).to(torch.int8)
+    else:
+        e = e.to(dtype)
+    alive = torch.rand(n_pad, generator=g) > 0.1
+    bias = torch.where(alive, 0.0, NEG_INF)
+    if per_query:
+        bias = bias[None, :] + 0.3 * torch.rand(b, n_pad, generator=g)
+    return q.to(dev), e.to(dev), bias.to(dev)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.int8])
+@pytest.mark.parametrize("b,d,n_pad,n_active,k,per_query", [
+    (1, 384, 4096, 4096, 10, False),
+    (5, 384, 5000, 4321, 10, True),        # ragged edge, n_active < n_pad
+    (32, 384, 20000, 20000, 128, False),
+    (40, 96, 3000, 2999, 1, True),         # two query blocks, D % 32 == 0
+    (3, 50, 1030, 700, 17, False),         # D not a multiple of 32
+    (33, 384, 16384, 5000, 10, True),      # capacity far above the live rows
+])
+def test_fused_topk_matches_plain(dev, dtype, b, d, n_pad, n_active, k,
+                                  per_query):
+    q, e, bias = _case(dev, b, d, n_pad, n_active, dtype, per_query)
+    before = LAUNCHES["fused_topk"]
+    vals, idx = fused_topk(q, e, bias, n_active, k=k)
+    torch.cuda.synchronize()
+    assert LAUNCHES["fused_topk"] == before + 1
+    ref_vals, ref_idx = plain_topk(q, e, bias, n_active, k=k)
+    if dtype == torch.int8:
+        # integer products summed exactly: identical results, ties included
+        assert torch.equal(vals, ref_vals) and torch.equal(idx, ref_idx)
+        return
+    from archi_tpu_torch.ops.topk import _scores
+    col = torch.arange(n_pad, device=dev)
+    scores = torch.where(col < n_active, _scores(q, e) + bias, NEG_INF)
+    assert_topk_matches(vals, idx, ref_vals, scores, atol=1e-5)
+
+
+def _random_case(seed):
+    """A random shape: batch across both query-block sizes, any D, a
+    ragged n_pad, n_active anywhere, k up to 128, either bias kind."""
+    rng = np.random.default_rng(seed)
+    dtype = [torch.float32, torch.bfloat16, torch.int8][seed % 3]
+    b = int(rng.integers(1, 70))
+    d = int(rng.choice([8, 33, 64, 96, 130, 384]))
+    n_pad = int(rng.integers(128, 9000))
+    n_active = int(rng.integers(0, n_pad + 1))
+    k = int(rng.integers(1, min(128, n_pad) + 1))
+    return dtype, b, d, n_pad, n_active, k, bool(rng.integers(0, 2))
+
+
+@pytest.mark.parametrize("seed", range(24))
+def test_fused_topk_random_shapes(dev, seed):
+    dtype, b, d, n_pad, n_active, k, per_query = _random_case(seed)
+    q, e, bias = _case(dev, b, d, n_pad, n_active, dtype, per_query, seed)
+    vals, idx = fused_topk(q, e, bias, n_active, k=k)
+    ref_vals, ref_idx = plain_topk(q, e, bias, n_active, k=k)
+    if dtype == torch.int8:
+        assert torch.equal(vals, ref_vals) and torch.equal(idx, ref_idx)
+        return
+    from archi_tpu_torch.ops.topk import _scores
+    col = torch.arange(n_pad, device=dev)
+    scores = torch.where(col < n_active, _scores(q, e) + bias, NEG_INF)
+    assert_topk_matches(vals, idx, ref_vals, scores, atol=1e-5)
+    dead = (vals <= -1e29).cpu().numpy()
+    # rows past n_active fill the tail in ascending order, as in the plain sort
+    np.testing.assert_array_equal(idx.cpu().numpy()[dead],
+                                  ref_idx.cpu().numpy()[dead])
+
+
+def test_fused_topk_unaligned_and_strided_inputs(dev):
+    """A corpus view off 16-byte alignment takes the scalar loads; strided
+    queries and bias are made contiguous by the wrapper."""
+    q, e, bias = _case(dev, 6, 64, 2000, 1900, torch.float32, True)
+    buf = torch.empty(e.numel() + 1, device=dev)
+    e_off = buf[1:].view(e.shape)
+    e_off.copy_(e)
+    assert e_off.data_ptr() % 16 != 0
+    q_strided = torch.stack([q, q], dim=2)[:, :, 0]
+    vals, idx = fused_topk(q_strided, e_off, bias.t().contiguous().t(), 1900, k=9)
+    ref_vals, ref_idx = plain_topk(q, e, bias, 1900, k=9)
+    torch.testing.assert_close(vals, ref_vals, rtol=0, atol=1e-5)
+
+
+def test_fused_topk_rows_past_n_active_fill_small_corpora(dev):
+    """k above the live rows: the list fills with NEG_INF rows, lowest
+    first, exactly as the stable plain sort orders them."""
+    q, e, bias = _case(dev, 2, 64, 1024, 3, torch.float32, False)
+    bias.zero_()
+    vals, idx = fused_topk(q, e, bias, 3, k=8)
+    ref_vals, ref_idx = plain_topk(q, e, bias, 3, k=8)
+    assert torch.equal(idx[:, 3:], ref_idx[:, 3:])
+    assert torch.all(vals[:, 3:] == NEG_INF)
+    torch.testing.assert_close(vals[:, :3], ref_vals[:, :3], rtol=0, atol=1e-5)
+
+
+def test_fused_topk_rows_past_n_active_outrank_lower_live_scores(dev):
+    """Live rows scored below NEG_INF (two stacked NEG_INF biases) rank
+    after the masked rows, as in the plain sort of the masked score row."""
+    q, e, bias = _case(dev, 4, 64, 4096, 2000, torch.float32, True)
+    bias[:, 6:] = 2 * NEG_INF
+    vals, idx = fused_topk(q, e, bias, 2000, k=12)
+    ref_vals, ref_idx = plain_topk(q, e, bias, 2000, k=12)
+    assert torch.equal(idx[:, 6:], ref_idx[:, 6:])
+    assert torch.equal(idx[:, 6:].cpu(), torch.arange(2000, 2006,
+                                                      dtype=torch.int32)
+                       .expand(4, 6))
+    torch.testing.assert_close(vals, ref_vals, rtol=0, atol=1e-5)
+
+
+def test_empty_batches_launch_nothing(dev):
+    q, e, bias = _case(dev, 1, 64, 512, 512, torch.bfloat16, False)
+    before = dict(LAUNCHES)
+    vals, idx = fused_topk(q[:0], e, bias, 512, k=5)
+    assert vals.shape == (0, 5) and idx.shape == (0, 5)
+    x = torch.empty(0, 16, 2, 32, device=dev)
+    assert encoder_attention(x, x, x, torch.empty(0, 16, device=dev),
+                             sm_scale=0.2).shape == (0, 16, 2, 32)
+    assert LAUNCHES == before
+
+
+@pytest.mark.parametrize("dtype,rtol,atol", [(torch.float32, 0, 2e-5),
+                                             (torch.bfloat16, 2 ** -7, 1e-3)])
+@pytest.mark.parametrize("b,s,nh,hd", [(3, 64, 4, 32), (2, 128, 2, 64),
+                                       (2, 512, 12, 32), (4, 200, 3, 16)])
+def test_encoder_attention_matches_plain(dev, dtype, rtol, atol, b, s, nh, hd):
+    g = torch.Generator(device="cpu").manual_seed(1)
+    qkv = torch.randn(b, s, 3 * nh * hd, generator=g).to(dev, dtype)
+    h = nh * hd
+    q, k, v = (qkv[..., i * h:(i + 1) * h].view(b, s, nh, hd) for i in range(3))
+    mask = torch.ones(b, s)
+    mask[0, s // 3:] = 0      # padded row
+    mask[-1, :] = 0           # fully masked row stays finite
+    key_bias = ((1.0 - mask) * -1e9).to(dev)
+    before = LAUNCHES["encoder_attention"]
+    out = encoder_attention(q, k, v, key_bias, sm_scale=hd ** -0.5)
+    torch.cuda.synchronize()
+    assert LAUNCHES["encoder_attention"] == before + 1
+    ref = plain_attention(q, k, v, key_bias, sm_scale=hd ** -0.5)
+    assert out.dtype == dtype and out.is_contiguous()
+    assert torch.isfinite(out.float()).all()
+    # bf16: at most one rounding step of the output apart
+    torch.testing.assert_close(out.float(), ref.float(), rtol=rtol, atol=atol)
+
+
+@pytest.mark.parametrize("seed", range(12))
+def test_encoder_attention_random_shapes(dev, seed):
+    rng = np.random.default_rng(seed)
+    b, s = int(rng.integers(1, 9)), int(rng.integers(1, 300))
+    nh, hd = int(rng.integers(1, 5)), int(rng.choice([8, 16, 32, 64]))
+    dtype = [torch.float32, torch.bfloat16][seed % 2]
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    x = torch.randn(b, s, 3, nh, hd, generator=g).to(dev, dtype)
+    q, k, v = x.unbind(2)                    # views with row stride 3*nh*hd
+    lens = torch.from_numpy(rng.integers(0, s + 1, b))
+    key_bias = ((torch.arange(s)[None, :] >= lens[:, None]).float()
+                * -1e9).to(dev)
+    out = encoder_attention(q, k, v, key_bias, sm_scale=hd ** -0.5)
+    ref = plain_attention(q, k, v, key_bias, sm_scale=hd ** -0.5)
+    assert torch.isfinite(out.float()).all()
+    rtol, atol = (0, 2e-5) if dtype == torch.float32 else (2 ** -7, 1e-3)
+    torch.testing.assert_close(out.float(), ref.float(), rtol=rtol, atol=atol)
+
+
+def test_encoder_on_card_matches_cpu(dev):
+    """The whole encoder in f32 on the card (kernel attention) against the
+    same weights on the CPU (plain attention)."""
+    from archi_tpu_torch.models.bert import BertConfig, BertEncoder, encode, init_params
+    from archi_tpu_torch.models.hf_loader import params_from_jax
+
+    cfg = BertConfig(vocab_size=300, hidden_size=64, num_layers=2, num_heads=2,
+                     intermediate_size=128, max_position_embeddings=128)
+    state = params_from_jax(init_params(cfg, seed=3))
+    ids = torch.from_numpy(np.random.default_rng(0).integers(0, 300, (4, 64)))
+    mask = torch.ones(4, 64, dtype=torch.long)
+    mask[1, 20:] = 0
+    outs = []
+    for device in ("cpu", dev):
+        model = BertEncoder.from_state(cfg, state, device=device)
+        outs.append(encode(model, ids.to(device), mask.to(device)).cpu())
+    torch.testing.assert_close(outs[1], outs[0], rtol=1e-4, atol=1e-5)
