@@ -96,6 +96,9 @@ def l2_normalize(x: torch.Tensor) -> torch.Tensor:
 class FlatIndex:
     """Exact cosine/IP index over a padded device tensor."""
 
+    #: ``search`` takes a per-query [B, N] bias (batched hybrid)
+    supports_batched_bias = True
+
     def __init__(self, dim: int, *, dtype=torch.bfloat16, tile_n: int = 4096,
                  normalize: bool = True, metric: str = "cosine", device=None):
         self.dim = int(dim)

@@ -18,7 +18,7 @@ import torch
 from archi_tpu_torch.ops.topk import MAX_K, NEG_INF, fused_topk, plain_topk
 
 __all__ = ["NEG_INF", "alive_to_bias", "pad_bias_rows", "next_pow2",
-           "plain_topk", "topk_scores", "FUSED_FALLBACKS"]
+           "plain_topk", "topk_scores", "topk_lower_first", "FUSED_FALLBACKS"]
 
 #: count of k > MAX_K calls served by the plain version (exported to
 #: /metrics as ``archi_fused_topk_fallbacks_total``)
@@ -45,6 +45,32 @@ def next_pow2(n: int) -> int:
     while b < n:
         b *= 2
     return b
+
+
+def topk_lower_first(x: torch.Tensor, k: int):
+    """Top-k along the last axis in ``lax.top_k``'s order: descending, equal
+    values ranked by the lower position (``torch.topk`` does not promise
+    that).  → (vals, positions int64), each [..., min(k, width)].
+
+    ``torch.topk`` finds the k-th value; every entry above it is kept and
+    the entries equal to it are kept lowest position first."""
+    lead, w = x.shape[:-1], x.shape[-1]
+    k = min(int(k), w)
+    x2 = x.reshape(-1, w)
+    if k == w or w <= 2048:
+        vals, pos = torch.sort(x2, dim=1, descending=True, stable=True)
+        vals, pos = vals[:, :k], pos[:, :k]
+    else:
+        kth = torch.topk(x2, k, dim=1).values[:, -1:]
+        above = x2 > kth
+        tied = x2 == kth
+        room = k - above.sum(dim=1, keepdim=True)
+        keep = above | (tied & (torch.cumsum(tied, dim=1) <= room))
+        pos = keep.nonzero()[:, 1].reshape(-1, k)     # ascending per row
+        vals = torch.gather(x2, 1, pos)
+        order = torch.sort(vals, dim=1, descending=True, stable=True).indices
+        vals, pos = vals.gather(1, order), pos.gather(1, order)
+    return vals.reshape(*lead, k), pos.reshape(*lead, k)
 
 
 def _count_fused_fallback(reason: str) -> None:

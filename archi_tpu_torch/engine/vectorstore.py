@@ -309,8 +309,10 @@ class TorchVectorStore:
             METRICS.inc("archi_engine_queries", labels={"kind": "hybrid"},
                         value=len(queries))
             return [[] for _ in queries]
-        if semantic_weight <= 0.0:
-            # degenerate lexical-only path (each call counts its query)
+        if not getattr(self.index, "supports_batched_bias", False) \
+                or semantic_weight <= 0.0:
+            # an index that takes no [B, N] bias, or the degenerate
+            # lexical-only path: one call per query (each counts its query)
             return [self.hybrid_search(
                 q, k, semantic_weight=semantic_weight,
                 bm25_weight=bm25_weight, filter=filter,
@@ -388,9 +390,16 @@ class TorchVectorStore:
 
     @classmethod
     def load(cls, directory: str, embedding_function, *, device=None,
-             **kw) -> "TorchVectorStore":
-        index = FlatIndex.load(os.path.join(directory, "index.npz"),
-                               device=device)
+             index_cls=None, index_loader=None, **kw) -> "TorchVectorStore":
+        """index_cls: the index class to load (default ``FlatIndex``).
+        index_loader: callable(path) -> index, for index types that need
+        constructor arguments on restart (an ``AnnFlatIndex``'s nlist,
+        nprobe, snapshot kind, ...)."""
+        path = os.path.join(directory, "index.npz")
+        if index_loader is not None:
+            index = index_loader(path)
+        else:
+            index = (index_cls or FlatIndex).load(path, device=device)
         bm25 = BM25Index.load(os.path.join(directory, "bm25.json"),
                               device=index.device)
         with open(os.path.join(directory, "rows.json")) as f:

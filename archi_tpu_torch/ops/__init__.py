@@ -7,7 +7,8 @@ run can show that its main path went through the kernels.
 
 from __future__ import annotations
 
-LAUNCHES: dict[str, int] = {"fused_topk": 0, "encoder_attention": 0}
+LAUNCHES: dict[str, int] = {"fused_topk": 0, "encoder_attention": 0,
+                             "adc_scores": 0, "adc_scores_lut16": 0}
 
 
 def reset_launches() -> None:

@@ -19,9 +19,20 @@ Phases (each fails the run with a non-zero exit):
      semantic and hybrid searches, check them against a brute-force scan of
      the same tensors, and check that both kernels' launch counters rose
      during that run while the top-k fallback counter stayed at 0;
-  4. time the encoder and the query paths with CUDA events.
+  4. time the encoder and the query paths with CUDA events;
+  5. path A, ``type: ivfpq`` serving: ``TorchVectorStore`` over
+     ``AnnFlatIndex(snapshot_kind="ivfpq")`` at the bootstrap's defaults,
+     documents through the encoder and a clustered corpus filled to 2^22
+     rows, the snapshot built, searched through the 8-bit ADC kernel and
+     the fresh tail, and checked (self-retrieval, kernel against the plain
+     ADC, filter, recall@10 against the exact scan, fresh rows, a
+     save/load round trip of the snapshot);
+  6. path B, the XL tier's snapshot: ``IVFPQIndex.build_streaming`` over
+     the same rows with packed 4-bit codes, block-budget probing through the
+     4-bit ADC kernel and the host exact rerank, checked the same way.
 
-The last two lines are a JSON object listing the kernels and
+Phase 2 also holds both ADC kernels against their plain versions at the
+shapes of paths A and B.  The last two lines are a JSON object listing the kernels and
 ``{"ok": true, "device": {...}}``.  Without CUDA, or without the rest of
 the repository beside it, the script exits non-zero and prints no result.
 """
@@ -30,6 +41,8 @@ from __future__ import annotations
 
 import json
 import math
+import os
+import shutil
 import subprocess
 import sys
 import time
@@ -45,6 +58,12 @@ FILL_BATCH = 1 << 16
 # which takes the power-of-two capacity past 2^20
 N_CAPACITY = 1 << 21
 SEED = 0
+# paths A and B: the ivfpq tier over a clustered corpus (64 near-duplicates
+# per cluster, the model of archi_tpu/benchmarking/synth_corpus.py)
+PATH_ROWS = 1 << 22
+PATH_DOCS = 1024
+XL_BLOCK_ROWS = 1 << 17
+ROOT = os.path.dirname(os.path.abspath(__file__))
 
 
 class SmokeFailure(RuntimeError):
@@ -79,6 +98,32 @@ def cuda_ms(fn, iters: int = 10, warmup: int = 2) -> float:
     start.record()
     for _ in range(iters):
         fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def graph_ms(fn, iters: int = 20) -> float:
+    """Device time of one fn() in ms without the host's launch overhead: fn
+    captured once in a CUDA graph, replayed `iters` times between CUDA
+    events."""
+    import torch
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, capture_error_mode="relaxed"):
+        fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        graph.replay()
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / iters
@@ -212,6 +257,61 @@ def attention_case(name, b, s, dtype, nh=12, hd=32, timed=False):
         log(f"    ms {res['ms']:.4f} plain {res['plain_ms']:.4f} "
             f"library {res['library_ms']:.4f} bound {res['bound_ms']:.4f} "
             f"({res['bound_by']})")
+    return res
+
+
+def adc_case(name, m, g, s, packed, timed=False, ksub=256):
+    """ADC kernel vs its plain version on one random input; returns a
+    result dict.  The yardstick is ``F.embedding_bag`` over the
+    bf16-rounded table (nibbles unpacked beforehand for 4-bit codes)."""
+    import torch
+    import torch.nn.functional as F
+
+    from archi_tpu_torch.ops import adc
+
+    dev = torch.device("cuda")
+    g_ = torch.Generator(device="cuda").manual_seed(SEED + m + g + s)
+    ksub = 16 if packed else ksub
+    luts = torch.randn(m, g, ksub, device=dev, generator=g_)
+    codes = torch.randint(0, ksub, (m, s), device=dev, generator=g_,
+                          dtype=torch.uint8)
+    if packed:
+        codes_in = adc.pack_nibbles(codes.t()).t().contiguous()
+        kernel, plain = adc.adc_scores_lut16, adc.plain_adc_scores_lut16
+    else:
+        codes_in, kernel, plain = codes, adc.adc_scores, adc.plain_adc_scores
+    out = kernel(luts, codes_in)
+    ref = plain(luts, codes_in)
+    torch.cuda.synchronize()
+    err = float((out - ref).abs().max())
+    tol = 1e-5   # both sum the bf16 table in subspace order (0 expected)
+    check(out.shape == (g, s) and bool(torch.isfinite(out).all())
+          and err <= tol, f"{name}: max_abs_err {err:.3g} (tol {tol})")
+    res = {"case": name, "m": m, "G": g, "S": s, "ksub": ksub,
+           "packed": packed, "max_abs_err": err, "tol": tol}
+    log(f"  {name}: max_abs_err {err:.3g} (tol {tol}) ok")
+    if timed:
+        # device times from CUDA graphs (the wrapper's host work is tens of
+        # microseconds, as long as the kernel); the event-timed loop too
+        res["ms"] = graph_ms(lambda: kernel(luts, codes_in))
+        res["ms_events"] = cuda_ms(lambda: kernel(luts, codes_in))
+        res["plain_ms"] = graph_ms(lambda: plain(luts, codes_in), iters=3)
+        table = adc.round_lut(luts).permute(0, 2, 1).reshape(
+            m * ksub, g).contiguous()
+        bags = (codes.t().long()
+                + ksub * torch.arange(m, device=dev)).contiguous()
+        lib_err = float((F.embedding_bag(bags, table, mode="sum").t()
+                         - ref).abs().max())
+        res["library_ms"] = graph_ms(
+            lambda: F.embedding_bag(bags, table, mode="sum"))
+        res["library_max_abs_err"] = lib_err
+        nbytes = codes_in.numel() + luts.numel() * 4 + g * s * 4
+        res["bound_ms"], res["bound_by"] = bound(nbytes, m * g * s,
+                                                 "float32")
+        log(f"    ms {res['ms']:.4f} (events {res['ms_events']:.4f}) plain "
+            f"{res['plain_ms']:.4f} library "
+            f"{res['library_ms']:.4f} (err {lib_err:.3g}) bound "
+            f"{res['bound_ms']:.4f} ({res['bound_by']})")
     return res
 
 
@@ -395,7 +495,7 @@ def main_path(results: dict):
     log(f"  encoder bf16 on the card vs f32 on the CPU: min cosine {cos:.5f}")
     results["e2e"] = {"ingest_docs_per_s": N_DOCS / t_ingest,
                       "encoder_cosine_vs_cpu_f32": cos}
-    return launches, store, emb, hybrid_q, docs
+    return launches, store, emb, hybrid_q, docs, vocab
 
 
 def timings(results, store, emb, hybrid_q, docs):
@@ -466,6 +566,328 @@ def timings(results, store, emb, hybrid_q, docs):
     log("  breakdown " + json.dumps(results["breakdown"]))
 
 
+# ------------------------------------------------------------- phases 5-6
+class ClusteredRows:
+    """The clustered corpus of archi_tpu/benchmarking/synth_corpus.py, made
+    on the card from a seed: PATH_ROWS / 64 standard-normal centres, each
+    row a random centre + 0.3 sigma noise, renormalised (64 near-duplicates
+    per cluster on average)."""
+
+    def __init__(self, n_rows: int, seed: int, d: int = 384):
+        import torch
+
+        self.gen = torch.Generator(device="cuda").manual_seed(seed)
+        self.centers = torch.randn(n_rows // 64, d, device="cuda",
+                                   generator=self.gen)
+
+    def rows(self, n: int, clusters=None):
+        import torch
+
+        if clusters is None:
+            clusters = torch.randint(0, self.centers.shape[0], (n,),
+                                     device="cuda", generator=self.gen)
+        v = self.centers[clusters] + 0.3 * torch.randn(
+            n, self.centers.shape[1], device="cuda", generator=self.gen)
+        return torch.nn.functional.normalize(v, dim=1)
+
+
+def same_rows(got_v, got_r, want_v, want_r, tol=1e-5):
+    """Tie-aware: scores within tol position by position, and a row in one
+    list only ties with the last score kept."""
+    import numpy as np
+
+    got_v, want_v = np.asarray(got_v), np.asarray(want_v)
+    if got_v.shape != want_v.shape or np.abs(got_v - want_v).max() > tol:
+        return False
+    for b in range(got_v.shape[0]):
+        g = dict(zip(np.asarray(got_r[b]).tolist(), got_v[b].tolist()))
+        w = dict(zip(np.asarray(want_r[b]).tolist(), want_v[b].tolist()))
+        if any(abs(g.get(r, w.get(r)) - want_v[b, -1]) > tol
+               for r in set(g) ^ set(w)):
+            return False
+    return True
+
+
+def recall_at_10(rows, exact_rows) -> float:
+    return sum(len(set(a.tolist()) & set(b.tolist()))
+               for a, b in zip(rows, exact_rows)) / (10 * len(exact_rows))
+
+
+def exact_top10(emb, n_rows: int, q):
+    """Exact top-10 rows of q over emb[:n_rows] (f32 products, chunked)."""
+    import torch
+
+    from archi_tpu_torch.engine.topk import topk_lower_first
+
+    vals, rows = [], []
+    for s0 in range(0, n_rows, 1 << 20):
+        sc = q @ emb[s0:min(n_rows, s0 + (1 << 20))].float().T
+        v, p = topk_lower_first(sc, 10)
+        vals.append(v)
+        rows.append(p + s0)
+    v, p = topk_lower_first(torch.cat(vals, dim=1), 10)
+    return torch.gather(torch.cat(rows, dim=1), 1, p).cpu().numpy()
+
+
+def host_ms(fn, reps: int = 3) -> float:
+    """Mean wall time of fn() in ms, synchronised, after one warm call."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) / reps * 1e3
+
+
+def path_a(results, emb, docs, vocab):
+    """Phase 5: ``type: ivfpq`` serving at the bootstrap's defaults.
+    Returns its launch counts, the store, the corpus generator and the
+    recall queries."""
+    import numpy as np
+    import torch
+
+    from archi_tpu_torch.engine import topk as engine_topk
+    from archi_tpu_torch.engine.ann_index import AnnFlatIndex
+    from archi_tpu_torch.engine.flat_index import FlatIndex
+    from archi_tpu_torch.engine.vectorstore import TorchVectorStore
+    from archi_tpu_torch.ops import LAUNCHES, reset_launches
+
+    rng = np.random.default_rng(SEED + 5)
+    docs = docs[:PATH_DOCS]
+    fill_texts = synthetic_texts(rng, vocab, PATH_ROWS - PATH_DOCS, 3)
+    corpus = ClusteredRows(PATH_ROWS, SEED + 6)
+    # archi_tpu/bin/bootstrap.py's `type: ivfpq` arguments
+    index = AnnFlatIndex(384, nlist=1024, nprobe=64, nprobe_blocks=None,
+                         cell_gate=None, block_rank_sub=8,
+                         min_snapshot_rows=1 << 15, snapshot_kind="ivfpq",
+                         pq_m=48, pq_refine_m=48, extract="auto", hier_t=64,
+                         async_refresh=True)
+    store = TorchVectorStore(emb, index=index)
+    out = {}
+
+    # ---- the path, counted
+    engine_topk.FUSED_FALLBACKS["count"] = 0
+    reset_launches()
+    t0 = time.perf_counter()
+    doc_ids = store.add_texts(
+        docs, metadatas=[{"kind": "even" if i % 2 == 0 else "odd"}
+                         for i in range(PATH_DOCS)])
+    for s0 in range(0, len(fill_texts), FILL_BATCH):
+        chunk = fill_texts[s0:s0 + FILL_BATCH]
+        store.add_texts(chunk, embeddings=corpus.rows(len(chunk)))
+    torch.cuda.synchronize()
+    out["fill_s"] = time.perf_counter() - t0
+    out["rows"], out["capacity"] = store.count(), index.capacity
+    log(f"  ingested {PATH_DOCS} documents and filled to {store.count()} "
+        f"rows in {out['fill_s']:.1f} s (capacity {index.capacity})")
+    check(store.count() == PATH_ROWS, "path A fill")
+    t0 = time.perf_counter()
+    index.refresh_ann()
+    torch.cuda.synchronize()
+    out["snapshot_build_s"] = time.perf_counter() - t0
+    ivf = index._ivf
+    check(ivf is not None and index._n_snap == PATH_ROWS, "no snapshot")
+    out["n_blocks"], out["max_bpc"] = (int(ivf.code_blocks.shape[0]),
+                                       int(ivf.cell_blocks.shape[1]))
+    out["adc_candidates_per_query"] = 64 * out["max_bpc"] * 512
+    log(f"  ivfpq snapshot built in {out['snapshot_build_s']:.1f} s "
+        f"({out['n_blocks']} blocks, max {out['max_bpc']} a cell)")
+
+    probes = list(range(0, PATH_DOCS, PATH_DOCS // 16))
+    sem_self = sum(ids_of(store.similarity_search_with_score(
+        docs[i], k=5))[:1] == [doc_ids[i]] for i in probes)
+    hyb_self = sum(ids_of(store.hybrid_search(docs[i], k=5))[:1]
+                   == [doc_ids[i]] for i in probes)
+    q_docs = [docs[i] for i in range(0, PATH_DOCS, PATH_DOCS // 32)]
+    semantic = store.similarity_search_batch(q_docs, k=10)
+    hybrid = store.hybrid_search_batch(q_docs, k=10)
+    filtered = store.hybrid_search_batch(q_docs[:8], k=10,
+                                         filter={"kind": "even"})
+    stored = torch.arange(PATH_DOCS, PATH_ROWS, (PATH_ROWS - PATH_DOCS) // 32,
+                          device="cuda")[:32]
+    _i, _v, stored_top = index.search(index.emb[stored].float(), k=10)
+    fresh = corpus.rows(4096)
+    store.add_texts(synthetic_texts(rng, vocab, 4096, 3), embeddings=fresh)
+    _i, fresh_v, fresh_top = index.search(fresh[::128], k=10)
+    torch.cuda.synchronize()
+    launches = dict(LAUNCHES)
+    log(f"  path A launches {launches}, top-k fallbacks "
+        f"{engine_topk.FUSED_FALLBACKS['count']}")
+    for name in ("adc_scores", "fused_topk", "encoder_attention"):
+        check(launches[name] > 0, f"path A: {name} never launched")
+    check(engine_topk.FUSED_FALLBACKS["count"] == 0, "top-k fell back")
+
+    # ---- checks.  Limits from the first card runs (PERF.md): stored
+    # rows and documents (hybrid) read 1.0; recall@10 read 0.781 and 0.756,
+    # so its limit leaves room for spread between runs (random candidates
+    # would read near 0).  Documents through the random-weight encoder
+    # lie within about 1e-2 of each other in cosine, under the PQ error, so
+    # semantic self-retrieval of documents is a reading, not a check
+    # (0.0625 in both runs).
+    out["self_rank1_docs_semantic"] = sem_self / len(probes)
+    out["self_rank1_docs_hybrid"] = hyb_self / len(probes)
+    out["self_rank1_stored_rows"] = float(np.mean(
+        stored_top[:, 0] == stored.cpu().numpy()))
+    pe = emb.encode_numpy([docs[i] for i in probes])
+    cos = pe @ pe.T
+    out["probe_docs_mean_cosine"] = float(
+        (cos.sum() - np.trace(cos)) / (len(probes) * (len(probes) - 1)))
+    check(out["self_rank1_docs_hybrid"] >= 0.9
+          and out["self_rank1_stored_rows"] >= 0.9,
+          f"path A self-retrieval: {out}")
+    check(all(len(r) == 10 for r in semantic + hybrid), "short results")
+    check(all(d.metadata["kind"] == "even" for r in filtered for d, _ in r),
+          "filter leaked rows")
+    fresh_rows = np.arange(PATH_ROWS, PATH_ROWS + 4096, 128)
+    check(bool((fresh_top[:, 0] == fresh_rows).all())
+          and bool((fresh_v[:, 0] > 0.99).all()),
+          "fresh rows not found through the tail")
+    # the same B=32 batches (now over the fresh rows too) with the kernel
+    # and with the plain ADC
+    with_kernel = (store.similarity_search_batch(q_docs, k=10)
+                   + store.hybrid_search_batch(q_docs, k=10))
+    index.adc_impl = "plain"
+    with_plain = (store.similarity_search_batch(q_docs, k=10)
+                  + store.hybrid_search_batch(q_docs, k=10))
+    index.adc_impl = None
+    bad = [i for i, (a, b) in enumerate(zip(with_kernel, with_plain))
+           if not same_ranking(a, b, tol=1e-5)]
+    check(not bad, f"kernel and plain ADC differ at {bad}")
+    queries = corpus.rows(32)
+    _i, _v, ann_rows = index.search(queries, k=10)
+    exact = exact_top10(index.emb, index.n_rows, queries)
+    out["recall_at_10"] = recall_at_10(ann_rows, exact)
+    check(out["recall_at_10"] >= 0.6,
+          f"path A recall@10 {out['recall_at_10']:.3f} < 0.6")
+    log(f"  probe documents' mean cosine {out['probe_docs_mean_cosine']:.4f}")
+    log(f"  self rank-1: docs semantic {out['self_rank1_docs_semantic']:.3f} "
+        f"hybrid {out['self_rank1_docs_hybrid']:.3f}, stored rows "
+        f"{out['self_rank1_stored_rows']:.3f}; recall@10 "
+        f"{out['recall_at_10']:.3f}; kernel == plain ADC on B=32 semantic "
+        f"and hybrid; filter and fresh tail hold")
+
+    # ---- save/load round trip of the snapshot sidecar
+    tmp = os.path.join(ROOT, ".chip_tmp")
+    os.makedirs(tmp, exist_ok=True)
+    try:
+        before = index.search(queries, k=10)
+        t0 = time.perf_counter()
+        path = os.path.join(tmp, "index.npz")
+        ivf.save(path + ".ann.npz")
+        with open(path + ".ann.json", "w") as f:
+            json.dump({"n_snap": PATH_ROWS, "kind": "ivfpq"}, f)
+        check(index.adopt_snapshot(path, warm=False), "snapshot not adopted")
+        after = index.search(queries, k=10)
+        out["snapshot_save_load_s"] = time.perf_counter() - t0
+        check(index._ivf is not ivf and same_rows(after[1], after[2],
+                                                  before[1], before[2], 0.0),
+              "save/load round trip changed the results")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    log(f"  snapshot save/load round trip in "
+        f"{out['snapshot_save_load_s']:.1f} s returns the same results")
+
+    # ---- times (host clock, synchronised)
+    q_emb = torch.from_numpy(store._embed_queries(q_docs)).cuda()
+    out["semantic_index_ms_b32"] = host_ms(lambda: index.search(q_emb, k=10))
+    out["semantic_store_ms_b32"] = host_ms(
+        lambda: store.similarity_search_batch(q_docs, k=10))
+    out["hybrid_store_ms_b32"] = host_ms(
+        lambda: store.hybrid_search_batch(q_docs, k=10))
+    for key in ("semantic_index", "semantic_store", "hybrid_store"):
+        out[f"{key}_qps_b32"] = 32 / out[f"{key}_ms_b32"] * 1e3
+    row_bias = torch.zeros(index.capacity, device="cuda")
+    out["ann_dispatch_ms_b32"] = host_ms(lambda: index._ivf.search_dispatch(
+        q_emb, k=40, nprobe=64, bias=row_bias, normalize_queries=False,
+        refine_overfetch=1))
+    log("  " + json.dumps(out))
+    results["path_a"] = out
+    return launches, store, corpus, queries, exact
+
+
+def path_b(results, index_a, corpus):
+    """Phase 6: the XL tier's snapshot over path A's first PATH_ROWS rows
+    (engine/xl_index.py's build and search arguments)."""
+    import numpy as np
+    import torch
+
+    from archi_tpu_torch.engine.host_store import HostVectorStore, exact_rerank
+    from archi_tpu_torch.engine.ivfpq_index import IVFPQIndex
+    from archi_tpu_torch.ops import LAUNCHES, reset_launches
+
+    emb = index_a.emb
+    n_blocks = PATH_ROWS // XL_BLOCK_ROWS
+    out = {}
+    t0 = time.perf_counter()
+    host = HostVectorStore(384, capacity=PATH_ROWS)
+    for i in range(n_blocks):
+        host.add(emb[i * XL_BLOCK_ROWS:(i + 1) * XL_BLOCK_ROWS]
+                 .half().cpu().numpy())
+    out["host_store_fill_s"] = time.perf_counter() - t0
+
+    def block_fn(i):
+        return emb[i * XL_BLOCK_ROWS:(i + 1) * XL_BLOCK_ROWS].float()
+
+    queries = corpus.rows(32)
+    q_np = queries.cpu().numpy()
+    bias = torch.zeros(PATH_ROWS, device="cuda")
+
+    def search(adc_impl=None):
+        vals, rows = ivf.search_dispatch(
+            queries, k=160, nprobe_blocks=128, cell_gate=None, bias=bias,
+            normalize_queries=False, refine_overfetch=1, extract="auto",
+            hier_t=64, adc_impl=adc_impl)
+        return vals.cpu().numpy(), rows.cpu().numpy()
+
+    reset_launches()
+    t0 = time.perf_counter()
+    ivf = IVFPQIndex.build_streaming(
+        block_fn, n_blocks, XL_BLOCK_ROWS, nlist=4096, block=512, m=48,
+        ksub=16, refine_m=48, train_blocks=2, spill_frac=0.0, opq_iters=0)
+    ivf.ensure_block_centroids(dtype=torch.bfloat16, sub=8)
+    torch.cuda.synchronize()
+    out["snapshot_build_s"] = time.perf_counter() - t0
+    out["n_blocks"] = int(ivf.code_blocks.shape[0])
+    check(ivf.packed and ivf.code_blocks.shape[2] == 24, "codes not packed")
+    cand_v, cand_r = search()
+    vals, rows = exact_rerank(host, q_np, cand_v, cand_r, k=10)
+    torch.cuda.synchronize()
+    launches = dict(LAUNCHES)
+    log(f"  XL snapshot built in {out['snapshot_build_s']:.1f} s "
+        f"({out['n_blocks']} blocks); launches {launches}")
+    check(launches["adc_scores_lut16"] > 0,
+          "path B: adc_scores_lut16 never launched")
+
+    plain_v, plain_r = search("plain")
+    check(same_rows(cand_v, cand_r, plain_v, plain_r),
+          "path B: kernel and plain ADC differ")
+    exact = exact_top10(emb, PATH_ROWS, queries)
+    out["recall_at_10"] = recall_at_10(rows, exact)
+    stored = np.arange(0, PATH_ROWS, PATH_ROWS // 32)[:32]
+    sq = emb[torch.as_tensor(stored, device="cuda")].float()
+    sv, sr = ivf.search_dispatch(sq, k=160, nprobe_blocks=128, bias=bias,
+                                 normalize_queries=False, refine_overfetch=1)
+    _v, self_rows = exact_rerank(host, sq.cpu().numpy(), sv.cpu().numpy(),
+                                 sr.cpu().numpy(), k=10)
+    out["self_rank1_stored_rows"] = float(np.mean(self_rows[:, 0] == stored))
+    # limits from the first card run (PERF.md): both read 1.0
+    check(bool(np.isfinite(vals).all()) and vals.shape == (32, 10)
+          and out["recall_at_10"] >= 0.9
+          and out["self_rank1_stored_rows"] >= 0.9, f"path B results {out}")
+    out["search_ms_b32"] = host_ms(lambda: exact_rerank(
+        host, q_np, *search(), k=10))
+    out["search_qps_b32"] = 32 / out["search_ms_b32"] * 1e3
+    out["dispatch_ms_b32"] = host_ms(search)
+    log(f"  recall@10 {out['recall_at_10']:.3f}, stored rows self rank-1 "
+        f"{out['self_rank1_stored_rows']:.3f}; kernel == plain ADC")
+    log("  " + json.dumps(out))
+    results["path_b"] = out
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -523,15 +945,45 @@ def main() -> int:
                        timed=True),
         attention_case("attn_b256_s512_f32", 256, 512, torch.float32),
     ]
+    adc8 = [
+        # path A: cell probing, one query a group (G=1) over 64 cells of up
+        # to 11 blocks of 512 (the snapshot's max_bpc at seed 0); a group
+        # of 4; adc_topk's G = batch
+        adc_case("adc8_g1_m48_s360448", 48, 1, 64 * 11 * 512, False,
+                 timed=True),
+        adc_case("adc8_g4_m48_s131072", 48, 4, 1 << 17, False),
+        adc_case("adc8_g256_m48_s65536", 48, 256, 1 << 16, False),
+        adc_case("adc8_g32_m96_s100003_k100", 96, 32, 100_003, False,
+                 ksub=100),
+    ]
+    adc4 = [
+        # path B: block probing, groups of 2 over 2 x 128 blocks of 512
+        adc_case("adc4_g2_m48_s131072", 48, 2, 1 << 17, True, timed=True),
+        adc_case("adc4_g1_m48_s999999", 48, 1, 999_999, True),
+        adc_case("adc4_g256_m96_s4097", 96, 256, 4097, True),
+    ]
     results["topk"], results["attention"] = topk, attn
+    results["adc_scores"], results["adc_scores_lut16"] = adc8, adc4
     torch.cuda.empty_cache()
 
     log("phase 3: main path (MiniLM-L6 TorchEmbedder -> TorchVectorStore)")
-    launches, store, emb, hybrid_q, docs = main_path(results)
+    launches, store, emb, hybrid_q, docs, vocab = main_path(results)
 
     log("phase 4: timings")
     timings(results, store, emb, hybrid_q, docs)
-    results["launches"] = launches
+    del store
+    torch.cuda.empty_cache()
+
+    log("phase 5: path A, type: ivfpq (AnnFlatIndex over TorchVectorStore)")
+    launches_a, store_a, corpus, _q, _exact = path_a(results, emb, docs, vocab)
+
+    log("phase 6: path B, the XL tier's packed 4-bit snapshot")
+    launches_b = path_b(results, store_a.index, corpus)
+    # each path ran with the counts set to 0 just before it
+    results["launches"] = {"main": launches, "path_a": launches_a,
+                           "path_b": launches_b}
+    launches = {name: launches[name] + launches_a[name] + launches_b[name]
+                for name in launches}
     results["seconds"] = time.perf_counter() - t_start
     log("detail " + json.dumps(results))
 
@@ -549,6 +1001,10 @@ def main() -> int:
               "archi_tpu/ops/pallas_topk.py:261", topk[0], topk),
         entry("encoder_attention", "archi_tpu_torch/csrc/encoder_attention.cu",
               "archi_tpu/ops/pallas_attention.py:97", attn[0], attn),
+        entry("adc_scores", "archi_tpu_torch/csrc/adc.cu",
+              "archi_tpu/ops/pallas_adc.py:58", adc8[0], adc8),
+        entry("adc_scores_lut16", "archi_tpu_torch/csrc/adc.cu",
+              "archi_tpu/ops/pallas_adc.py:112", adc4[0], adc4),
     ]
     log(card)
     print(json.dumps({"kernels": kernels}))

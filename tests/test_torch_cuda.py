@@ -223,3 +223,85 @@ def test_encoder_on_card_matches_cpu(dev):
         model = BertEncoder.from_state(cfg, state, device=device)
         outs.append(encode(model, ids.to(device), mask.to(device)).cpu())
     torch.testing.assert_close(outs[1], outs[0], rtol=1e-4, atol=1e-5)
+
+
+# ------------------------------------------------------------------ ADC
+def _adc_case(dev, m, g, s, ksub, seed):
+    rng = np.random.default_rng(seed)
+    luts = torch.from_numpy(rng.standard_normal((m, g, ksub)).astype(np.float32))
+    codes = torch.from_numpy(rng.integers(0, ksub, (m, s)).astype(np.uint8))
+    return luts.to(dev), codes.to(dev)
+
+
+@pytest.mark.parametrize("m,g,s", [(8, 1, 1), (16, 3, 1000), (48, 1, 262_145),
+                                   (48, 4, 131_072), (96, 2, 5003),
+                                   (48, 256, 4097), (96, 256, 999)])
+def test_adc_scores_matches_plain(dev, m, g, s):
+    """The kernel sums the bf16-rounded table in subspace order, as the plain
+    version does: identical f32 scores.  G = 256 tiles the queries and (at
+    m = 96) splits the table into runs of subspaces."""
+    from archi_tpu_torch.ops.adc import adc_scores, plain_adc_scores
+
+    luts, codes = _adc_case(dev, m, g, s, 256, seed=m + g + s)
+    before = LAUNCHES["adc_scores"]
+    out = adc_scores(luts, codes)
+    torch.cuda.synchronize()
+    assert LAUNCHES["adc_scores"] == before + 1
+    assert out.shape == (g, s) and out.dtype == torch.float32
+    torch.testing.assert_close(out, plain_adc_scores(luts, codes), rtol=0,
+                               atol=1e-5)
+
+
+@pytest.mark.parametrize("m,g,s", [(8, 1, 1), (16, 2, 131_072), (48, 2, 131_071),
+                                   (48, 9, 777), (96, 256, 2049)])
+def test_adc_scores_lut16_matches_plain(dev, m, g, s):
+    from archi_tpu_torch.ops.adc import (adc_scores_lut16, pack_nibbles,
+                                         plain_adc_scores_lut16)
+
+    luts, codes = _adc_case(dev, m, g, s, 16, seed=m * g + s)
+    packed_t = pack_nibbles(codes.t()).t().contiguous()
+    before = LAUNCHES["adc_scores_lut16"]
+    out = adc_scores_lut16(luts, packed_t)
+    torch.cuda.synchronize()
+    assert LAUNCHES["adc_scores_lut16"] == before + 1
+    torch.testing.assert_close(out, plain_adc_scores_lut16(luts, packed_t),
+                               rtol=0, atol=1e-5)
+
+
+@pytest.mark.parametrize("seed", range(16))
+def test_adc_random_shapes(dev, seed):
+    """Random (m, G, S): G up to 256 for the query tiling, odd S, m in
+    {8, 16, 48, 96}, both code widths, ksub below 256 for 8-bit codes."""
+    from archi_tpu_torch.ops.adc import (adc_scores, adc_scores_lut16,
+                                         pack_nibbles, plain_adc_scores,
+                                         plain_adc_scores_lut16)
+
+    rng = np.random.default_rng(100 + seed)
+    m = int(rng.choice([8, 16, 48, 96]))
+    g = int(rng.integers(1, 257))
+    s = int(rng.integers(1, 40_000)) | 1
+    if seed % 2:
+        luts, codes = _adc_case(dev, m, g, s, 16, seed)
+        packed_t = pack_nibbles(codes.t()).t().contiguous()
+        got, want = (adc_scores_lut16(luts, packed_t),
+                     plain_adc_scores_lut16(luts, packed_t))
+    else:
+        ksub = int(rng.choice([16, 100, 256]))
+        luts, codes = _adc_case(dev, m, g, s, ksub, seed)
+        got, want = adc_scores(luts, codes), plain_adc_scores(luts, codes)
+    torch.testing.assert_close(got, want, rtol=0, atol=1e-5)
+
+
+def test_adc_strided_inputs_and_empty_shapes(dev):
+    from archi_tpu_torch.ops.adc import adc_scores, plain_adc_scores
+
+    luts, codes = _adc_case(dev, 16, 3, 5000, 256, seed=7)
+    wide = torch.stack([codes, codes], dim=2)[:, :, 0]   # strided view
+    assert not wide.is_contiguous()
+    torch.testing.assert_close(adc_scores(luts.transpose(0, 1).contiguous()
+                                          .transpose(0, 1), wide),
+                               plain_adc_scores(luts, codes), rtol=0, atol=1e-5)
+    before = dict(LAUNCHES)
+    assert adc_scores(luts, codes[:, :0]).shape == (3, 0)
+    assert adc_scores(luts[:, :0], codes).shape == (0, 5000)
+    assert LAUNCHES == before

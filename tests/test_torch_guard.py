@@ -25,8 +25,10 @@ FILES = sorted((ROOT / "archi_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.p
 
 
 def _forbidden(name: str) -> bool:
+    """JAX, the JAX package, and ml_dtypes (absent where the port runs:
+    bf16 arrays travel through npz as uint16 bit views)."""
     top = name.split(".")[0]
-    return top in ("jax", "jaxlib", "archi_tpu")
+    return top in ("jax", "jaxlib", "archi_tpu", "ml_dtypes")
 
 
 def _imported_names(tree):
@@ -92,9 +94,20 @@ def test_default_device_is_cuda_and_raises_without_it(no_cuda):
     class Emb:
         dim = 16
 
+    from archi_tpu_torch.engine.ann_index import AnnFlatIndex
+    from archi_tpu_torch.engine.ivf_index import IVFIndex
+    from archi_tpu_torch.engine.ivfpq_index import IVFPQIndex
+    from archi_tpu_torch.engine.kmeans import kmeans
+    from archi_tpu_torch.engine.pq import PQCodec
+
+    x = np.eye(4, 16, dtype=np.float32)
     for make in (default_device, lambda: FlatIndex(16), BM25Index,
                  lambda: TorchEmbedder(config=cfg),
-                 lambda: TorchVectorStore(Emb())):
+                 lambda: TorchVectorStore(Emb()),
+                 lambda: AnnFlatIndex(16, snapshot_kind="ivfpq"),
+                 lambda: kmeans(x, 2), lambda: PQCodec(np.zeros((2, 4, 8))),
+                 lambda: IVFIndex.build(x, None, nlist=2),
+                 lambda: IVFPQIndex.build(x, nlist=2, m=2, ksub=4)):
         with pytest.raises(RuntimeError, match="device='cpu'"):
             make()
     assert default_device("cpu") == torch.device("cpu")
@@ -115,6 +128,13 @@ def test_wrappers_raise_on_devices_they_do_not_serve():
     q = torch.empty(1, 4, 2, 8, device=m)
     with pytest.raises(ValueError, match="unsupported device"):
         encoder_attention(q, q, q, torch.empty(1, 4, device=m), sm_scale=1.0)
+    from archi_tpu_torch.ops.adc import adc_scores, adc_scores_lut16
+
+    luts = torch.empty(4, 2, 16, device=m)
+    with pytest.raises(ValueError, match="unsupported device"):
+        adc_scores(luts, torch.empty(4, 9, dtype=torch.uint8, device=m))
+    with pytest.raises(ValueError, match="unsupported device"):
+        adc_scores_lut16(luts, torch.empty(2, 9, dtype=torch.uint8, device=m))
 
 
 def test_cpu_wrappers_count_no_launches():
@@ -128,13 +148,22 @@ def test_cpu_wrappers_count_no_launches():
     fused_topk(e[:2], e, torch.zeros(64), 64, k=3)
     q = torch.from_numpy(rng.standard_normal((1, 4, 2, 8)).astype(np.float32))
     encoder_attention(q, q, q, torch.zeros(1, 4), sm_scale=0.5)
+    from archi_tpu_torch.ops.adc import (adc_scores, adc_scores_lut16,
+                                         pack_nibbles)
+
+    luts = torch.from_numpy(rng.standard_normal((4, 2, 16)).astype(np.float32))
+    codes = torch.from_numpy(rng.integers(0, 16, (4, 33)).astype(np.uint8))
+    assert adc_scores(luts, codes).shape == (2, 33)
+    assert adc_scores_lut16(luts, pack_nibbles(codes.t()).t()).shape == (2, 33)
+    assert set(LAUNCHES) == {"fused_topk", "encoder_attention", "adc_scores",
+                             "adc_scores_lut16"}
     assert LAUNCHES == before
 
 
 def test_build_finds_sources_and_needs_nvcc(monkeypatch, tmp_path):
     from archi_tpu_torch.ops import _build
 
-    assert _build.sources() == ["encoder_attention", "fused_topk"]
+    assert _build.sources() == ["adc", "encoder_attention", "fused_topk"]
     assert "arch=compute_90a,code=sm_90a" in _build.NVCC_FLAGS
     monkeypatch.setattr(_build, "BUILD_DIR", str(tmp_path))
     assert _build._stale("fused_topk")           # nothing built yet
