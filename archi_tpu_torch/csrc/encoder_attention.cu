@@ -21,26 +21,46 @@
 // 4 * B * nh * S^2 * hd = 6.4 GFLOP of the two products take 0.007 ms on
 // the bf16 tensor cores.  The bytes grow with S and the operations with
 // S^2, so the bound is the bytes up to S of about 600, past the largest
-// bucket (512).
-// This first version computes on the CUDA cores in f32 and is bound by
-// those operations, not by the bytes: making it reach the bytes needs the
-// tensor cores (mma / wgmma), work for a later version.
+// bucket (512).  On the CUDA cores in f32 (67 TFLOP/s) the same products
+// take 0.1 ms, three times the bytes.
 //
-// Design.  One CTA per (query block of 128 rows, head, batch); one thread
-// per query row, holding its q row and its f32 context in registers.  The
-// keys stream through shared memory in chunks of 64 (K, V and the bias,
-// converted to f32) and every thread reads each key row as a broadcast.
-// Two passes over the keys give the exact full-row softmax of the TPU
-// kernel: the first finds the row max, the second sums exp2(s - max) and
-// accumulates p * v; the context is scaled by 1/sum last.  Unlike the TPU
-// kernel, p is not rounded to the input type before the PV product.  The
-// logits are rounded as the plain version rounds them (scale product, then
-// bias add: no FMA), so a row's max is the same in both.
+// Two routes, chosen by the input type:
+//
+// bf16: tc_attention_kernel, on the tensor cores (mma.sync m16n8k16, bf16
+//   operands, f32 accumulators).  One CTA of 4 warps per (head, batch row).
+//   K and V of that head (S <= 512 rows of hd) are copied once into shared
+//   memory with cp.async (16 bytes a thread) in rows padded by 16 bytes, so
+//   the ldmatrix loads of the fragments hit eight different bank groups;
+//   the key bias (times log2 e) sits beside them.  Each warp takes 16 query
+//   rows at a time, its q fragments in registers straight from device
+//   memory.  Pass 1 computes q k^T on the tensor cores and the exact row
+//   max; pass 2 computes q k^T again (the products are cheap: the kernel is
+//   bound by bytes), p = exp2(s * scale_log2 + bias - max), the f32 row sum
+//   from those p, then rounds p to bf16 as the TPU kernel does
+//   (`p.astype(v_t.dtype)`) and multiplies it by V (ldmatrix.trans) into
+//   f32 accumulators; the context is scaled by 1/sum last.  hd = 8 pads the
+//   depth of q k^T to 16 with zeros (exact).  Keys past S are -inf, so they
+//   take no part; padding keys keep -1e9 log2 e and a fully masked row
+//   stays finite.  Everything is read from device memory once (q, k, v and
+//   the bias) and written once (the context).
+//
+// f32: attention_kernel, on the CUDA cores in f32: TF32 would not hold the
+//   2e-5 agreement with the reference.  One CTA per (query block of 128
+//   rows, head, batch); one thread per query row, holding its q row and its
+//   f32 context in registers.  The keys stream through shared memory in
+//   chunks of 64 (K, V and the bias) and every thread reads each key row as
+//   a broadcast.  The same two passes; p stays f32 (rounding to the input
+//   type is the identity there).
+//
+// In both routes the logits are rounded as the plain version rounds them
+// (scale product, then bias add: no FMA).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include <cmath>
+
+#include "tc.cuh"
 
 namespace {
 
@@ -49,13 +69,9 @@ constexpr int kKC = 64;   // keys per shared-memory chunk
 constexpr float kLog2e = 1.4426950408889634f;
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
 
 template <typename T> __device__ __forceinline__ T from_f32(float x);
 template <> __device__ __forceinline__ float from_f32<float>(float x) { return x; }
-template <> __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);
-}
 
 template <int HD>
 __device__ __forceinline__ float dot_row(const float (&qr)[HD], const float* kr) {
@@ -157,6 +173,223 @@ attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
+// ---------------------------------------------------------------- bf16
+constexpr int kTcWarps = 4;
+
+__host__ __device__ constexpr int tc_depth(int hd) { return hd < 16 ? 16 : hd; }
+// shared-memory row of K and V, in elements: the q k^T depth + 16 bytes
+__host__ __device__ constexpr int tc_stride(int hd) { return tc_depth(hd) + 8; }
+
+size_t tc_smem_bytes(int hd, int S) {
+  const size_t sp = (S + 15) / 16 * 16;
+  return sp * (2 * tc_stride(hd) * sizeof(__nv_bfloat16) + sizeof(float));
+}
+
+__device__ __forceinline__ uint32_t ld_pair(const __nv_bfloat16* p, bool vec) {
+  if (vec) return *reinterpret_cast<const uint32_t*>(p);
+  const uint16_t* u = reinterpret_cast<const uint16_t*>(p);
+  return static_cast<uint32_t>(u[0]) | (static_cast<uint32_t>(u[1]) << 16);
+}
+
+// q k^T of 16 query rows (fragments qa) and keys [n0, n0 + 16): two 16 x 8
+// tiles, s[0] keys n0.., s[1] keys n0 + 8..
+template <int HD>
+__device__ __forceinline__ void qk_tile(const uint32_t (&qa)[tc_depth(HD) / 16][4],
+                                        const __nv_bfloat16* ks, int n0, int lane,
+                                        float (&s)[2][4]) {
+  constexpr int ST = tc_stride(HD);
+#pragma unroll
+  for (int i = 0; i < 2; ++i)
+#pragma unroll
+    for (int c = 0; c < 4; ++c) s[i][c] = 0.f;
+  const int row = n0 + (lane & 7) + ((lane >> 4) << 3);
+  const int col = ((lane >> 3) & 1) * 8;
+#pragma unroll
+  for (int kk = 0; kk < tc_depth(HD) / 16; ++kk) {
+    uint32_t kb[4];
+    tc::ldmatrix_x4(kb, ks + row * ST + kk * 16 + col);
+    tc::mma_bf16(s[0], qa[kk], kb[0], kb[1]);
+    tc::mma_bf16(s[1], qa[kk], kb[2], kb[3]);
+  }
+}
+
+template <int HD>
+__global__ void __launch_bounds__(kTcWarps * 32)
+tc_attention_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
+                    const __nv_bfloat16* __restrict__ v, int in_stride,
+                    const float* __restrict__ key_bias, __nv_bfloat16* __restrict__ out,
+                    int S, int nh, float scale_log2, int vec) {
+  constexpr int KD = tc_depth(HD);  // depth of q k^T
+  constexpr int ST = tc_stride(HD);
+  constexpr int CH = HD / 8;        // 16-byte pieces of a row
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const int sp = (S + 15) / 16 * 16;
+  __nv_bfloat16* ks = reinterpret_cast<__nv_bfloat16*>(smem_raw);  // [sp][ST]
+  __nv_bfloat16* vs = ks + sp * ST;                                 // [sp][ST]
+  float* bs = reinterpret_cast<float*>(vs + sp * ST);               // [sp]
+
+  const int h = blockIdx.x, b = blockIdx.y;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const size_t base = static_cast<size_t>(b) * S * in_stride + static_cast<size_t>(h) * HD;
+  const float* kb = key_bias + static_cast<size_t>(b) * S;
+
+  // K and V of this head into shared memory; keys past S are zero
+  for (int x = tid; x < sp * CH; x += kTcWarps * 32) {
+    const int j = x / CH, c = (x - j * CH) * 8;
+    const size_t off = base + static_cast<size_t>(j) * in_stride + c;
+    if (vec) {
+      const int n = j < S ? 16 : 0;
+      tc::cp_async16(ks + j * ST + c, n ? k + off : k, n);
+      tc::cp_async16(vs + j * ST + c, n ? v + off : v, n);
+    } else {
+      const uint16_t* ku = reinterpret_cast<const uint16_t*>(k);
+      const uint16_t* vu = reinterpret_cast<const uint16_t*>(v);
+      uint16_t* kd = reinterpret_cast<uint16_t*>(ks + j * ST + c);
+      uint16_t* vd = reinterpret_cast<uint16_t*>(vs + j * ST + c);
+#pragma unroll
+      for (int e = 0; e < 8; ++e) {
+        kd[e] = j < S ? ku[off + e] : 0;
+        vd[e] = j < S ? vu[off + e] : 0;
+      }
+    }
+  }
+  tc::cp_async_commit();
+  if (KD > HD)  // hd = 8: the depth of q k^T is padded to 16 with zeros
+    for (int j = tid; j < sp; j += kTcWarps * 32)
+      *reinterpret_cast<uint4*>(ks + j * ST + HD) = make_uint4(0, 0, 0, 0);
+  for (int j = tid; j < sp; j += kTcWarps * 32)
+    bs[j] = j < S ? __fmul_rn(kb[j], kLog2e) : -INFINITY;
+
+  const int g = lane >> 2, t = lane & 3;
+  const int nq_tiles = (S + 15) / 16;
+  uint32_t qa[KD / 16][4];
+  auto load_q = [&](int m0) {
+    const int r0 = m0 + g, r1 = m0 + g + 8;
+#pragma unroll
+    for (int kk = 0; kk < KD / 16; ++kk)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int r = (i & 1) ? r1 : r0;
+        const int c = kk * 16 + (i >> 1) * 8 + 2 * t;
+        qa[kk][i] = (r < S && c < HD)
+                        ? ld_pair(q + base + static_cast<size_t>(r) * in_stride + c, vec)
+                        : 0u;
+      }
+  };
+  if (warp < nq_tiles) load_q(warp * 16);  // in flight with the copies
+  tc::cp_async_wait<0>();
+  __syncthreads();
+
+  for (int tile = warp; tile < nq_tiles; tile += kTcWarps) {
+    const int m0 = tile * 16;
+    if (tile != warp) load_q(m0);
+
+    // pass 1: the exact row max (rows g and g + 8 of the tile)
+    float mx[2] = {-INFINITY, -INFINITY};
+    for (int n0 = 0; n0 < sp; n0 += 16) {
+      float s[2][4];
+      qk_tile<HD>(qa, ks, n0, lane, s);
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        const int c = n0 + i * 8 + 2 * t;
+        const float b0 = bs[c], b1 = bs[c + 1];
+        mx[0] = fmaxf(mx[0], fmaxf(__fmul_rn(s[i][0], scale_log2) + b0,
+                                   __fmul_rn(s[i][1], scale_log2) + b1));
+        mx[1] = fmaxf(mx[1], fmaxf(__fmul_rn(s[i][2], scale_log2) + b0,
+                                   __fmul_rn(s[i][3], scale_log2) + b1));
+      }
+    }
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+    }
+
+    // pass 2: p, the f32 row sum, and p (as bf16) times V
+    float l[2] = {0.f, 0.f};
+    float acc[HD / 8][4];
+#pragma unroll
+    for (int d = 0; d < HD / 8; ++d)
+#pragma unroll
+      for (int c = 0; c < 4; ++c) acc[d][c] = 0.f;
+    const int vrow = (lane & 7) + ((lane >> 3) & 1) * 8;
+    for (int n0 = 0; n0 < sp; n0 += 16) {
+      float s[2][4];
+      qk_tile<HD>(qa, ks, n0, lane, s);
+      uint32_t pa[4];
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        const int c = n0 + i * 8 + 2 * t;
+        const float b0 = bs[c], b1 = bs[c + 1];
+        const float p0 = exp2f(__fmul_rn(s[i][0], scale_log2) + b0 - mx[0]);
+        const float p1 = exp2f(__fmul_rn(s[i][1], scale_log2) + b1 - mx[0]);
+        const float p2 = exp2f(__fmul_rn(s[i][2], scale_log2) + b0 - mx[1]);
+        const float p3 = exp2f(__fmul_rn(s[i][3], scale_log2) + b1 - mx[1]);
+        l[0] += p0 + p1;
+        l[1] += p2 + p3;
+        pa[2 * i] = tc::pack_bf16(p0, p1);      // row g, keys c, c + 1
+        pa[2 * i + 1] = tc::pack_bf16(p2, p3);  // row g + 8
+      }
+      const __nv_bfloat16* vr = vs + (n0 + vrow) * ST;
+      if constexpr (HD == 8) {
+        uint32_t vb[2];
+        tc::ldmatrix_x2_trans(vb, vr);
+        tc::mma_bf16(acc[0], pa, vb[0], vb[1]);
+      } else {
+#pragma unroll
+        for (int d0 = 0; d0 < HD; d0 += 16) {
+          uint32_t vb[4];
+          tc::ldmatrix_x4_trans(vb, vr + d0 + (lane >> 4) * 8);
+          tc::mma_bf16(acc[d0 / 8], pa, vb[0], vb[1]);
+          tc::mma_bf16(acc[d0 / 8 + 1], pa, vb[2], vb[3]);
+        }
+      }
+    }
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
+      l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
+    }
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int row = m0 + g + 8 * r;
+      if (row >= S) continue;
+      const float inv = 1.0f / l[r];
+      __nv_bfloat16* dst =
+          out + (static_cast<size_t>(b) * S + row) * nh * HD + static_cast<size_t>(h) * HD;
+#pragma unroll
+      for (int d = 0; d < HD / 8; ++d)
+        *reinterpret_cast<uint32_t*>(dst + d * 8 + 2 * t) =
+            tc::pack_bf16(acc[d][2 * r] * inv, acc[d][2 * r + 1] * inv);
+    }
+  }
+}
+
+template <int HD>
+cudaError_t launch_tc(const void* q, const void* k, const void* v, int in_stride,
+                      const float* key_bias, void* out, int B, int S, int nh,
+                      float scale_log2, int vec, cudaStream_t stream) {
+  const size_t smem = tc_smem_bytes(HD, S);
+  static size_t opted = 0;  // dynamic shared memory granted so far
+  if (smem > opted) {
+    int dev = 0, cap = 0;
+    cudaError_t err = cudaGetDevice(&dev);
+    if (err == cudaSuccess)
+      err = cudaDeviceGetAttribute(&cap, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+    if (err != cudaSuccess) return err;
+    if (smem > static_cast<size_t>(cap)) return cudaErrorInvalidValue;
+    err = cudaFuncSetAttribute(tc_attention_kernel<HD>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize, cap);
+    if (err != cudaSuccess) return err;
+    opted = cap;
+  }
+  tc_attention_kernel<HD><<<dim3(nh, B), kTcWarps * 32, smem, stream>>>(
+      static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
+      static_cast<const __nv_bfloat16*>(v), in_stride, key_bias,
+      static_cast<__nv_bfloat16*>(out), S, nh, scale_log2, vec);
+  return cudaGetLastError();
+}
+
 template <typename T, int HD>
 cudaError_t launch_t(const void* q, const void* k, const void* v,
                      int in_stride, const float* key_bias, void* out, int B,
@@ -169,35 +402,39 @@ cudaError_t launch_t(const void* q, const void* k, const void* v,
   return cudaGetLastError();
 }
 
-template <typename T>
-cudaError_t dispatch_hd(int hd, const void* q, const void* k, const void* v,
-                        int in_stride, const float* key_bias, void* out, int B,
-                        int S, int nh, float scale_log2, cudaStream_t stream) {
-  switch (hd) {
-    case 8: return launch_t<T, 8>(q, k, v, in_stride, key_bias, out, B, S, nh, scale_log2, stream);
-    case 16: return launch_t<T, 16>(q, k, v, in_stride, key_bias, out, B, S, nh, scale_log2, stream);
-    case 32: return launch_t<T, 32>(q, k, v, in_stride, key_bias, out, B, S, nh, scale_log2, stream);
-    case 64: return launch_t<T, 64>(q, k, v, in_stride, key_bias, out, B, S, nh, scale_log2, stream);
-  }
-  return cudaErrorInvalidValue;
-}
-
 }  // namespace
 
 extern "C" {
 
-// dtype: 0 float32, 1 bfloat16 (see ops/attention.py).  q, k and v are
-// [B, S, nh, hd] with `in_stride` elements between sequence positions; out
-// is a contiguous [B, S, nh, hd].  scale_log2 = sm_scale * log2(e).
+// dtype: 0 float32 (CUDA cores), 1 bfloat16 (tensor cores); see
+// ops/attention.py.  q, k and v are [B, S, nh, hd] with `in_stride`
+// elements between sequence positions; out is a contiguous [B, S, nh, hd].
+// scale_log2 = sm_scale * log2(e).  vec (bf16): q, k and v start on 16
+// bytes and in_stride is a multiple of 8, so rows are copied 16 bytes at a
+// time.
 int archi_encoder_attention(int dtype, const void* q, const void* k,
                             const void* v, int in_stride,
                             const float* key_bias, void* out, int B, int S,
-                            int nh, int hd, float scale_log2, void* stream) {
+                            int nh, int hd, float scale_log2, int vec,
+                            void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  switch (dtype) {
-    case 0: return dispatch_hd<float>(hd, q, k, v, in_stride, key_bias, out, B, S, nh, scale_log2, st);
-    case 1: return dispatch_hd<__nv_bfloat16>(hd, q, k, v, in_stride, key_bias, out, B, S, nh, scale_log2, st);
+#define ARCHI_ATTN_ARGS q, k, v, in_stride, key_bias, out, B, S, nh, scale_log2
+  if (dtype == 0) {
+    switch (hd) {
+      case 8: return launch_t<float, 8>(ARCHI_ATTN_ARGS, st);
+      case 16: return launch_t<float, 16>(ARCHI_ATTN_ARGS, st);
+      case 32: return launch_t<float, 32>(ARCHI_ATTN_ARGS, st);
+      case 64: return launch_t<float, 64>(ARCHI_ATTN_ARGS, st);
+    }
+  } else if (dtype == 1) {
+    switch (hd) {
+      case 8: return launch_tc<8>(ARCHI_ATTN_ARGS, vec, st);
+      case 16: return launch_tc<16>(ARCHI_ATTN_ARGS, vec, st);
+      case 32: return launch_tc<32>(ARCHI_ATTN_ARGS, vec, st);
+      case 64: return launch_tc<64>(ARCHI_ATTN_ARGS, vec, st);
+    }
   }
+#undef ARCHI_ATTN_ARGS
   return cudaErrorInvalidValue;
 }
 

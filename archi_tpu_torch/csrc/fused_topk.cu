@@ -12,27 +12,43 @@
 // D = 384, bf16) one scan reads the 805 MB of live rows, 0.24 ms at
 // 3.35 TB/s; a per-query bias [B, n_pad] f32 adds 4 MB of live entries per
 // query (1 GiB at B = 256, more than the corpus).  The products are
-// 2 * B * n_active * D operations:
-// under the memory time on the tensor cores up to B of about 300, but this
-// first version computes them on the CUDA cores in f32 (67 TFLOP/s, 12 us
-// per query at these shapes), which puts the operations above the bytes
-// from B of about 20 up.
+// 2 * B * n_active * D operations: 0.03 ms at B = 32 and 0.21 ms at
+// B = 256 on the bf16 tensor cores (989 TFLOP/s), under the bytes; on the
+// CUDA cores in f32 (67 TFLOP/s) they are 0.39 and 3.1 ms, above them from
+// B of about 20 up.  So bf16 and int8 corpora are scored on the tensor
+// cores; f32 corpora stay on the CUDA cores, where TF32 would not hold the
+// 1e-4 agreement with the plain version.
 //
 // Design.  The TPU kernel walks the tiles in order on one core and carries
 // a running [B, 128] top-k in scratch.  CTAs on Hopper run in parallel and
 // in no order, so the scan is two passes:
-//   pass 1 (topk_partial_kernel): grid (query block, corpus split); the
-//     splits cover the live rows [0, n_active) only, so an index whose
-//     capacity is well above its rows (a power of two) costs nothing more.
-//     Each CTA keeps QB queries in shared memory as f32, streams its split's rows
-//     in 128-row tiles through shared memory in 32-deep chunks (the next
-//     chunk is loaded into registers while the current one is used), and
-//     each warp holds the dot products of its own queries in registers.
-//     The warp then offers its 128 candidate rows to the sorted k-list of
-//     each of its queries in shared memory; a ballot against the list's
-//     last entry keeps the insertions rare once the list is full.  Query
-//     blocks are the fastest grid axis, so the CTAs that read one split run
-//     together and share it through L2.
+//   pass 1: grid (query block, corpus split); the splits cover the live
+//     rows [0, n_active) only, so an index whose capacity is well above its
+//     rows (a power of two) costs nothing more.  Query blocks are the
+//     fastest grid axis, so the CTAs that read one split run together and
+//     share it through L2.  Each CTA streams its split in 128-row tiles and
+//     keeps a sorted k-list per query in shared memory.
+//     - bf16 / int8 (tc_topk_partial_kernel): QB (8, 32 or 64) queries sit
+//       in shared memory in the corpus type, rows padded by 16 bytes.  The
+//       tiles arrive 128 bytes of depth at a time through a 4-stage ring of
+//       cp.async copies (16 bytes a thread), swizzled (16-byte piece
+//       u of row r at u ^ (r & 7)) so the ldmatrix loads are conflict
+//       free; a D that is not a multiple of the 128 bytes is zero-filled.
+//       Each of the 8 warps takes 16 rows of the tile as the M side of
+//       mma.sync (m16n8k16 bf16 -> f32, or m16n8k32 s8 -> s32, exact) and
+//       the QB queries as N.  Epilogue: scale (__fmul_rn), then the bias,
+//       read into registers at the start of the tile, 32 contiguous bytes
+//       of rows per query; each score is gated against its query's k-th
+//       entry in registers, and the survivors go to a per-query candidate
+//       buffer in shared memory, which each warp merges into the k-lists of
+//       its queries after the tile.  Once a list is full the survivors are
+//       rare, so the selection costs little beside the products.
+//     - f32 (topk_partial_kernel): QB (8 or 32) queries in shared memory
+//       as f32, 128-row tiles in 32-deep chunks (the next chunk is loaded
+//       into registers while the current one is used), scalar fmaf, each
+//       warp holding the dot products of its own queries in registers and
+//       offering its 128 candidate rows to their k-lists (a ballot against
+//       the list's last entry).
 //   pass 2 (topk_merge_kernel): one warp per query merges the splits'
 //     lists into the final [B, k], then offers the rows past n_active at
 //     NEG_INF.  Only the first k of them (n_active .. n_active + k - 1) can
@@ -41,9 +57,10 @@
 //     as a sort of the full masked score row would.
 // bf16 products are exact in f32, so the scores differ from an f32 product
 // of the bf16-rounded operands only by the order of the sum.  int8 rows and
-// queries (clip(round(127 x))) are summed as integers held in f32, which is
-// exact while D * 127^2 < 2^24 (D <= 1040, checked by the wrapper), then
-// scaled by 1/127^2 as the TPU kernel's int32 product is.
+// queries (clip(round(127 x))) are summed exactly as int32 and scaled by
+// 1/127^2 as the TPU kernel's int32 product is; the plain version sums them
+// in f32, exact while D * 127^2 < 2^24 (D <= 1040, checked by the wrapper),
+// so both give the same scores.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -51,6 +68,9 @@
 
 #include <climits>
 #include <cmath>
+#include <type_traits>
+
+#include "tc.cuh"
 
 namespace {
 
@@ -64,8 +84,6 @@ constexpr int kMaxK = 128;
 constexpr float kNegInf = -1.0e30f;         // NEG_INF of the JAX package
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
-__device__ __forceinline__ float to_f32(int8_t x) { return static_cast<float>(x); }
 
 // 16 consecutive elements at a 16-byte aligned address, as f32.
 __device__ __forceinline__ void load16(const float* src, float* dst) {
@@ -75,26 +93,6 @@ __device__ __forceinline__ void load16(const float* src, float* dst) {
     float4 v = s[i];
     dst[4 * i] = v.x; dst[4 * i + 1] = v.y; dst[4 * i + 2] = v.z; dst[4 * i + 3] = v.w;
   }
-}
-__device__ __forceinline__ void load16(const __nv_bfloat16* src, float* dst) {
-  const uint4* s = reinterpret_cast<const uint4*>(src);
-#pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    uint4 v = s[i];
-    const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&v);
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      float2 f = __bfloat1622float2(h[j]);
-      dst[8 * i + 2 * j] = f.x;
-      dst[8 * i + 2 * j + 1] = f.y;
-    }
-  }
-}
-__device__ __forceinline__ void load16(const int8_t* src, float* dst) {
-  uint4 v = *reinterpret_cast<const uint4*>(src);
-  const int8_t* c = reinterpret_cast<const int8_t*>(&v);
-#pragma unroll
-  for (int i = 0; i < 16; ++i) dst[i] = static_cast<float>(c[i]);
 }
 
 // (v, i) ranks above (w, j): the higher score first, the lower row on ties.
@@ -276,6 +274,194 @@ topk_partial_kernel(const T* __restrict__ q, const T* __restrict__ e,
   }
 }
 
+// ------------------------------------------------- bf16 / int8, tensor cores
+constexpr int kStages = 4;                        // cp.async ring depth
+constexpr int kChunkB = 128;                      // bytes of depth a stage
+constexpr int kStageB = kTileN * kChunkB;         // 16 KB a stage
+constexpr int kLoadsPerThread = kStageB / 16 / kThreads;
+
+// shared memory of tc_topk_partial_kernel: ring, queries, k-lists,
+// candidate buffers and their counts
+size_t tc_smem_bytes(int qb, int d, int esize, int k) {
+  const size_t qrow = static_cast<size_t>(round_up(d * esize, kChunkB)) + 16;
+  return static_cast<size_t>(kStages) * kStageB + qb * qrow +
+         static_cast<size_t>(qb) * k * 8 + static_cast<size_t>(qb) * kTileN * 8 +
+         static_cast<size_t>(qb) * 4;
+}
+
+template <typename T, int QB, bool PER_QUERY>
+__global__ void __launch_bounds__(kThreads, 1)  // shared memory allows 1-2 CTAs
+tc_topk_partial_kernel(const T* __restrict__ q, const T* __restrict__ e,
+                       const float* __restrict__ bias, int bias_stride, int B,
+                       int D, int n_active, int k, int rows_per_split,
+                       float scale, int vec, float* __restrict__ part_v,
+                       int* __restrict__ part_i) {
+  constexpr bool kInt8 = std::is_same<T, int8_t>::value;
+  using Acc = typename std::conditional<kInt8, int, float>::type;
+  constexpr int NT = QB / 8;  // 8-query tiles of the N side
+  extern __shared__ __align__(16) float smem[];  // as the other kernels
+  const int RB = D * static_cast<int>(sizeof(T));  // bytes of a row
+  const int nch = (RB + kChunkB - 1) / kChunkB;     // stages a tile
+  const int QSB = nch * kChunkB + 16;               // query row in shared
+  unsigned char* ring = reinterpret_cast<unsigned char*>(smem);
+  unsigned char* qs = ring + kStages * kStageB;
+  float* lv = reinterpret_cast<float*>(qs + QB * QSB);  // [QB][k]
+  int* li = reinterpret_cast<int*>(lv + QB * k);
+  float* cv = reinterpret_cast<float*>(li + QB * k);    // [QB][kTileN]
+  int* ci = reinterpret_cast<int*>(cv + QB * kTileN);
+  int* cnt = ci + QB * kTileN;                          // [QB]
+
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int g = lane >> 2, t = lane & 3;
+  const int q0 = blockIdx.x * QB;
+  const int split = blockIdx.y, splits = gridDim.y;
+  const int row_begin = split * rows_per_split;
+  const int row_end = min(n_active, row_begin + rows_per_split);
+  const int ntiles = row_end > row_begin ? (row_end - row_begin + kTileN - 1) / kTileN : 0;
+  const int nsteps = ntiles * nch;
+  const unsigned char* eb = reinterpret_cast<const unsigned char*>(e);
+
+  // one stage: 128 rows x 128 bytes of depth, zero past the rows and past D
+  auto load_stage = [&](int step) {
+    const int tile = step / nch, ch = step - tile * nch;
+    const int t0 = row_begin + tile * kTileN;
+    unsigned char* st = ring + (step % kStages) * kStageB;
+#pragma unroll
+    for (int i = 0; i < kLoadsPerThread; ++i) {
+      const int c = tid + i * kThreads;
+      const int r = c >> 3, u = c & 7;
+      const int row = t0 + r, byte = ch * kChunkB + u * 16;
+      unsigned char* dst = st + r * kChunkB + ((u ^ (r & 7)) << 4);
+      const bool ok = row < row_end && byte < RB;
+      const unsigned char* src = eb + static_cast<size_t>(row) * RB + byte;
+      if (vec) {
+        tc::cp_async16(dst, ok ? src : eb, ok ? 16 : 0);
+      } else {
+        for (int x = 0; x < 16; ++x) dst[x] = ok && byte + x < RB ? src[x] : 0;
+      }
+    }
+  };
+#pragma unroll
+  for (int s = 0; s < kStages - 1; ++s) {
+    if (s < nsteps) load_stage(s);
+    tc::cp_async_commit();
+  }
+
+  // queries (already in the corpus type) into shared memory, zero past D
+  // and past B; empty k-lists and candidate buffers
+  const unsigned char* qb = reinterpret_cast<const unsigned char*>(q);
+  for (int x = tid; x < QB * (QSB / 4); x += kThreads) {
+    const int qi = x / (QSB / 4), byte = (x - qi * (QSB / 4)) * 4;
+    uint32_t w = 0u;
+    if (q0 + qi < B)
+      for (int y = 0; y < 4 && byte + y < RB; ++y)
+        w |= static_cast<uint32_t>(qb[static_cast<size_t>(q0 + qi) * RB + byte + y]) << (8 * y);
+    *reinterpret_cast<uint32_t*>(qs + qi * QSB + byte) = w;
+  }
+  for (int x = tid; x < QB * k; x += kThreads) { lv[x] = -INFINITY; li[x] = INT_MAX; }
+  for (int x = tid; x < QB; x += kThreads) cnt[x] = 0;
+
+  Acc acc[NT][4];
+  float br[PER_QUERY ? NT : 1][4];
+  for (int step = 0; step < nsteps; ++step) {
+    tc::cp_async_wait<kStages - 2>();
+    __syncthreads();  // stage `step` is in; stage step - 1 is no longer read
+    if (step + kStages - 1 < nsteps) load_stage(step + kStages - 1);
+    tc::cp_async_commit();
+
+    const int tile = step / nch, ch = step - tile * nch;
+    const int t0 = row_begin + tile * kTileN;
+    const int r0 = t0 + warp * 16 + g;  // this thread's rows: r0, r0 + 8
+    if (ch == 0) {
+#pragma unroll
+      for (int n = 0; n < NT; ++n)
+#pragma unroll
+        for (int c = 0; c < 4; ++c) acc[n][c] = 0;
+      // the tile's bias, in flight during the products
+#pragma unroll
+      for (int n = 0; n < (PER_QUERY ? NT : 1); ++n)
+#pragma unroll
+        for (int c = 0; c < 4; ++c) {
+          const int row = r0 + (c >> 1) * 8;
+          const int qg = q0 + n * 8 + 2 * t + (c & 1);
+          const bool ok = row < row_end && (!PER_QUERY || qg < B);
+          br[n][c] = ok ? bias[(PER_QUERY ? static_cast<size_t>(qg) * bias_stride : 0) + row]
+                        : 0.f;
+        }
+    }
+
+    const unsigned char* st = ring + (step % kStages) * kStageB;
+    const int ar = warp * 16 + (lane & 7) + ((lane >> 3) & 1) * 8;
+#pragma unroll
+    for (int kp = 0; kp < kChunkB / 32; kp += 2) {  // two 32-byte k-steps
+      uint32_t a[2][4];
+#pragma unroll
+      for (int j = 0; j < 2; ++j) {
+        const int u = (kp + j) * 2 + (lane >> 4);
+        tc::ldmatrix_x4(a[j], st + ar * kChunkB + ((u ^ (ar & 7)) << 4));
+      }
+#pragma unroll
+      for (int n = 0; n < NT; ++n) {
+        uint32_t b[4];
+        tc::ldmatrix_x4(b, qs + (n * 8 + (lane & 7)) * QSB + ch * kChunkB + kp * 32 +
+                               (lane >> 3) * 16);
+        if constexpr (kInt8) {
+          tc::mma_s8(acc[n], a[0], b[0], b[1]);
+          tc::mma_s8(acc[n], a[1], b[2], b[3]);
+        } else {
+          tc::mma_bf16(acc[n], a[0], b[0], b[1]);
+          tc::mma_bf16(acc[n], a[1], b[2], b[3]);
+        }
+      }
+    }
+    if (ch != nch - 1) continue;
+
+    // epilogue: scores that beat their query's k-th entry become candidates
+#pragma unroll
+    for (int n = 0; n < NT; ++n)
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        const int row = r0 + (c >> 1) * 8;
+        const int qi = n * 8 + 2 * t + (c & 1);
+        if (row >= row_end || q0 + qi >= B) continue;
+        // the product rounds before the bias is added (no FMA), as in the
+        // plain version and the TPU kernel
+        const float v = __fmul_rn(static_cast<float>(acc[n][c]), scale) +
+                        br[PER_QUERY ? n : 0][c];
+        if (better(v, row, lv[qi * k + k - 1], li[qi * k + k - 1])) {
+          const int p = atomicAdd(&cnt[qi], 1);
+          cv[qi * kTileN + p] = v;
+          ci[qi * kTileN + p] = row;
+        }
+      }
+    __syncthreads();
+    // each warp merges the candidates of its queries into their k-lists
+    for (int qi = warp; qi < QB; qi += kWarps) {
+      const int n = cnt[qi];
+      if (n == 0) continue;
+      float thr_v = lv[qi * k + k - 1];
+      int thr_i = li[qi * k + k - 1];
+      for (int base = 0; base < n; base += 32) {
+        const int x = base + lane;
+        const bool valid = x < n;
+        warp_offer(lv + qi * k, li + qi * k, k, valid ? cv[qi * kTileN + x] : -INFINITY,
+                   valid ? ci[qi * kTileN + x] : INT_MAX, valid, thr_v, thr_i);
+      }
+      if (lane == 0) cnt[qi] = 0;
+    }
+  }
+  __syncthreads();
+  for (int x = tid; x < QB * k; x += kThreads) {
+    const int qi = x / k, j = x - qi * k;
+    const int qg = q0 + qi;
+    if (qg < B) {
+      const size_t o = (static_cast<size_t>(qg) * splits + split) * k + j;
+      part_v[o] = lv[x];
+      part_i[o] = li[x];
+    }
+  }
+}
+
 __global__ void __launch_bounds__(kThreads)
 topk_merge_kernel(const float* __restrict__ part_v, const int* __restrict__ part_i,
                   int B, int splits, int k, int n_pad, int n_active,
@@ -312,23 +498,82 @@ topk_merge_kernel(const float* __restrict__ part_v, const int* __restrict__ part
   }
 }
 
+// The pass-1 kernel of a call, its block of queries and its shared memory.
+struct Route {
+  const void* fn;
+  int qb;
+  size_t smem;
+};
+
+template <int QB>
+Route f32_route(int D, int k) {
+  return {reinterpret_cast<const void*>(topk_partial_kernel<float, QB>), QB,
+          partial_smem_bytes(QB, D, k)};
+}
+
 template <typename T, int QB>
-cudaError_t plan_t(int B, int D, int n_active, int k, int* splits, int* rows_per_split) {
-  const size_t smem = partial_smem_bytes(QB, D, k);
-  cudaError_t err = cudaFuncSetAttribute(
-      topk_partial_kernel<T, QB>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
+Route tc_route(int D, int k, bool per_query) {
+  const void* fn = per_query
+                       ? reinterpret_cast<const void*>(tc_topk_partial_kernel<T, QB, true>)
+                       : reinterpret_cast<const void*>(tc_topk_partial_kernel<T, QB, false>);
+  return {fn, QB, tc_smem_bytes(QB, D, sizeof(T), k)};
+}
+
+template <typename T>
+Route tc_route(int qb, int D, int k, bool per_query) {
+  switch (qb) {
+    case 8: return tc_route<T, 8>(D, k, per_query);
+    case 32: return tc_route<T, 32>(D, k, per_query);
+  }
+  return tc_route<T, 64>(D, k, per_query);
+}
+
+// dtype 0: f32 on the CUDA cores, 8 or 32 queries a CTA.  1 (bf16) and 2
+// (int8): tensor cores, 8, 32 or 64 queries a CTA, the largest the batch
+// can use whose shared memory fits.
+cudaError_t pick_route(int dtype, int B, int D, int k, int per_query, Route* r) {
+  if (dtype < 0 || dtype > 2) return cudaErrorInvalidValue;
+  int dev = 0, cap = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&cap, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  if (err != cudaSuccess) return err;
+  if (dtype == 0) {
+    *r = B <= 8 ? f32_route<8>(D, k) : f32_route<32>(D, k);
+    if (r->smem > static_cast<size_t>(cap)) return cudaErrorInvalidValue;
+  } else {
+    for (int qb = B <= 8 ? 8 : (B <= 32 ? 32 : 64);; qb = qb == 64 ? 32 : 8) {
+      *r = dtype == 1 ? tc_route<__nv_bfloat16>(qb, D, k, per_query)
+                      : tc_route<int8_t>(qb, D, k, per_query);
+      if (r->smem <= static_cast<size_t>(cap)) break;
+      if (qb == 8) return cudaErrorInvalidValue;  // D too large for shared memory
+    }
+  }
+  return cudaFuncSetAttribute(r->fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              static_cast<int>(r->smem));
+}
+
+}  // namespace
+
+extern "C" {
+
+// dtype: 0 float32, 1 bfloat16, 2 int8 (see ops/topk.py).
+// The splits cover the live rows [0, n_active): one wave of CTAs over
+// (query blocks x splits).
+int archi_fused_topk_plan(int dtype, int B, int D, int n_active, int k,
+                          int bias_per_query, int* splits, int* rows_per_split) {
+  Route r;
+  cudaError_t err = pick_route(dtype, B, D, k, bias_per_query, &r);
   if (err != cudaSuccess) return err;
   int per_sm = 0, dev = 0, sms = 0;
-  if ((err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-           &per_sm, topk_partial_kernel<T, QB>, kThreads, smem)) != cudaSuccess)
+  if ((err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, r.fn, kThreads,
+                                                           r.smem)) != cudaSuccess)
     return err;
   if (per_sm < 1) return cudaErrorInvalidConfiguration;
   if ((err = cudaGetDevice(&dev)) != cudaSuccess) return err;
   if ((err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)) != cudaSuccess)
     return err;
-  // one wave of CTAs over (query blocks x splits of the live rows)
-  const int qblocks = (B + QB - 1) / QB;
+  const int qblocks = (B + r.qb - 1) / r.qb;
   const int tiles = max(1, (n_active + kTileN - 1) / kTileN);
   int s = (per_sm * sms + qblocks - 1) / qblocks;
   s = max(1, min(s, min(tiles, 65535)));
@@ -338,71 +583,27 @@ cudaError_t plan_t(int B, int D, int n_active, int k, int* splits, int* rows_per
   return cudaSuccess;
 }
 
-template <typename T, int QB>
-cudaError_t launch_t(const void* q, const void* e, const float* bias,
-                     int bias_stride, int B, int D, int n_pad, int n_active,
-                     int k, float scale, int splits, int rows_per_split,
-                     int vec, float* part_v, int* part_i, float* out_v,
-                     int* out_i, cudaStream_t stream) {
-  const size_t smem = partial_smem_bytes(QB, D, k);
-  cudaError_t err = cudaFuncSetAttribute(
-      topk_partial_kernel<T, QB>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
-  if (err != cudaSuccess) return err;
-  dim3 grid((B + QB - 1) / QB, splits);
-  topk_partial_kernel<T, QB><<<grid, kThreads, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(e), bias, bias_stride, B,
-      D, n_active, k, rows_per_split, scale, vec, part_v, part_i);
-  if ((err = cudaGetLastError()) != cudaSuccess) return err;
-  const size_t msmem = static_cast<size_t>(kWarps) * k * (sizeof(float) + sizeof(int));
-  topk_merge_kernel<<<(B + kWarps - 1) / kWarps, kThreads, msmem, stream>>>(
-      part_v, part_i, B, splits, k, n_pad, n_active, out_v, out_i);
-  return cudaGetLastError();
-}
-
-}  // namespace
-
-extern "C" {
-
-// dtype: 0 float32, 1 bfloat16, 2 int8 (see ops/topk.py).
-// The splits cover the live rows [0, n_active).
-int archi_fused_topk_plan(int dtype, int B, int D, int n_active, int k,
-                          int* splits, int* rows_per_split) {
-  const bool small = B <= 8;
-#define ARCHI_PLAN_ARGS B, D, n_active, k, splits, rows_per_split
-  switch (dtype) {
-    case 0: return small ? plan_t<float, 8>(ARCHI_PLAN_ARGS)
-                         : plan_t<float, 32>(ARCHI_PLAN_ARGS);
-    case 1: return small ? plan_t<__nv_bfloat16, 8>(ARCHI_PLAN_ARGS)
-                         : plan_t<__nv_bfloat16, 32>(ARCHI_PLAN_ARGS);
-    case 2: return small ? plan_t<int8_t, 8>(ARCHI_PLAN_ARGS)
-                         : plan_t<int8_t, 32>(ARCHI_PLAN_ARGS);
-  }
-#undef ARCHI_PLAN_ARGS
-  return cudaErrorInvalidValue;
-}
-
 int archi_fused_topk(int dtype, const void* q, const void* e, const float* bias,
                      int bias_per_query, int B, int D, int n_pad, int n_active,
                      int k, float scale, int splits, int rows_per_split, int vec,
                      float* part_v, int* part_i, float* out_v, int* out_i,
                      void* stream) {
   if (k < 1 || k > kMaxK) return cudaErrorInvalidValue;
-  const int bs = bias_per_query ? n_pad : 0;
+  Route r;
+  cudaError_t err = pick_route(dtype, B, D, k, bias_per_query, &r);
+  if (err != cudaSuccess) return err;
+  int bs = bias_per_query ? n_pad : 0;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const bool small = B <= 8;
-#define ARCHI_TOPK_ARGS q, e, bias, bs, B, D, n_pad, n_active, k, scale, splits, \
-                        rows_per_split, vec, part_v, part_i, out_v, out_i, st
-  switch (dtype) {
-    case 0: return small ? launch_t<float, 8>(ARCHI_TOPK_ARGS)
-                         : launch_t<float, 32>(ARCHI_TOPK_ARGS);
-    case 1: return small ? launch_t<__nv_bfloat16, 8>(ARCHI_TOPK_ARGS)
-                         : launch_t<__nv_bfloat16, 32>(ARCHI_TOPK_ARGS);
-    case 2: return small ? launch_t<int8_t, 8>(ARCHI_TOPK_ARGS)
-                         : launch_t<int8_t, 32>(ARCHI_TOPK_ARGS);
-  }
-#undef ARCHI_TOPK_ARGS
-  return cudaErrorInvalidValue;
+  // both pass-1 kernels take the same arguments
+  void* args[] = {&q, &e, &bias, &bs, &B, &D, &n_active, &k, &rows_per_split,
+                  &scale, &vec, &part_v, &part_i};
+  err = cudaLaunchKernel(r.fn, dim3((B + r.qb - 1) / r.qb, splits), dim3(kThreads), args,
+                         r.smem, st);
+  if (err != cudaSuccess) return err;
+  const size_t msmem = static_cast<size_t>(kWarps) * k * (sizeof(float) + sizeof(int));
+  topk_merge_kernel<<<(B + kWarps - 1) / kWarps, kThreads, msmem, st>>>(
+      part_v, part_i, B, splits, k, n_pad, n_active, out_v, out_i);
+  return cudaGetLastError();
 }
 
 const char* archi_topk_error_string(int err) {

@@ -24,7 +24,7 @@ import ctypes
 
 import torch
 
-from archi_tpu_torch.ops import LAUNCHES, _build
+from archi_tpu_torch.ops import _build, count_launch
 
 
 def round_lut(luts_mgk: torch.Tensor) -> torch.Tensor:
@@ -112,7 +112,7 @@ def _launch(name, fn, args, lib, dev):
     if rc != 0:
         raise RuntimeError(f"{name}: {lib.archi_adc_error_string(rc).decode()} "
                            f"(error {rc})")
-    LAUNCHES[name] += 1
+    count_launch(name)
 
 
 def adc_scores(luts_mgk, codes_t):

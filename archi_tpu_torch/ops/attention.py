@@ -6,9 +6,12 @@ with an exact full-row softmax in the exp2 domain, f32 accumulation and the
 normalisation applied last.  The layout is ``[B, S, nh, hd]`` — the
 encoder's projection output viewed per head — instead of the TPU kernel's
 ``[B, nh, hd, S]``; q, k and v may be strided views of one fused
-``[B, S, 3H]`` projection.  ``encoder_attention`` launches
-``csrc/encoder_attention.cu`` on CUDA tensors and takes
-``plain_attention`` on CPU tensors.
+``[B, S, 3H]`` projection.  As in the TPU kernel, the unnormalised
+probabilities are rounded to the input type before the PV product (a no-op
+in f32) and the row sum is taken from them in f32.  ``encoder_attention``
+launches ``csrc/encoder_attention.cu`` on CUDA tensors — bf16 on the
+tensor cores, f32 on the CUDA cores — and takes ``plain_attention`` on CPU
+tensors.
 """
 
 from __future__ import annotations
@@ -17,13 +20,27 @@ import ctypes
 
 import torch
 
-from archi_tpu_torch.ops import LAUNCHES, _build
+from archi_tpu_torch.ops import _build, count_launch
 
 LOG2E = 1.4426950408889634
 #: head dims the kernel is compiled for
 HEAD_DIMS = (8, 16, 32, 64)
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+_ROUTES = {torch.float32: "cuda_core", torch.bfloat16: "tensor_core"}
+
+
+def _probabilities(q, k, key_bias, sm_scale):
+    """Unnormalised f32 probabilities [B, nh, S, S] and their row sums."""
+    bias = key_bias.float() * LOG2E
+    logits = (torch.einsum("bqnd,bknd->bnqk", q.float(), k.float())
+              * (sm_scale * LOG2E) + bias[:, None, None, :])
+    p = torch.exp2(logits - logits.amax(dim=-1, keepdim=True))
+    return p, p.sum(dim=-1)
+
+
+def _normalise(ctx, denom):
+    return ctx * (1.0 / denom).permute(0, 2, 1)[..., None]
 
 
 def plain_attention(q, k, v, key_bias, *, sm_scale: float):
@@ -31,16 +48,21 @@ def plain_attention(q, k, v, key_bias, *, sm_scale: float):
 
     q, k, v: [B, S, nh, hd]; key_bias: [B, S] f32 (0 real, -1e9 padding).
     Returns the contiguous context [B, S, nh, hd] in q's dtype."""
-    qf, kf, vf = q.float(), k.float(), v.float()
-    bias = key_bias.float() * LOG2E
-    logits = (torch.einsum("bqnd,bknd->bnqk", qf, kf) * (sm_scale * LOG2E)
-              + bias[:, None, None, :])
-    m = logits.amax(dim=-1, keepdim=True)
-    p = torch.exp2(logits - m)
-    denom = p.sum(dim=-1)                                   # [B, nh, S]
-    ctx = torch.einsum("bnqk,bknd->bqnd", p, vf)
-    ctx = ctx * (1.0 / denom).permute(0, 2, 1)[..., None]
-    return ctx.to(q.dtype).contiguous()
+    p, denom = _probabilities(q, k, key_bias, sm_scale)
+    p = p.to(q.dtype).float()       # the TPU kernel's p.astype(v.dtype)
+    ctx = torch.einsum("bnqk,bknd->bqnd", p, v.float())
+    return _normalise(ctx, denom).to(q.dtype).contiguous()
+
+
+def p_rounding_bound(q, k, v, key_bias, *, sm_scale: float):
+    """[B, S, nh, hd] f32: how far two versions that round p to bf16 may
+    differ through that rounding alone, one bf16 step of each probability
+    (at most 2^-7 p): ``2^-7 · Σ_j p_j |v_j| / l``.  The kernel and the plain
+    version sum the logits in another order, so a p that lies next to a
+    bf16 rounding boundary may round up in one and down in the other."""
+    p, denom = _probabilities(q, k, key_bias, sm_scale)
+    ctx = torch.einsum("bnqk,bknd->bqnd", p, v.float().abs())
+    return _normalise(ctx, denom) * 2.0 ** -7
 
 
 _lib = None
@@ -53,7 +75,7 @@ def _kernel():
         vp, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
         lib.archi_encoder_attention.restype = i
         lib.archi_encoder_attention.argtypes = [
-            i, vp, vp, vp, i, vp, vp, i, i, i, i, f, vp]
+            i, vp, vp, vp, i, vp, vp, i, i, i, i, f, i, vp]
         lib.archi_attention_error_string.restype = ctypes.c_char_p
         lib.archi_attention_error_string.argtypes = [i]
         _lib = lib
@@ -87,10 +109,12 @@ def encoder_attention(q, k, v, key_bias, *, sm_scale: float):
         raise ValueError(f"encoder_attention: head dim {hd} not in {HEAD_DIMS}")
     if b > 65535:
         raise ValueError(f"encoder_attention: batch {b} > 65535")
-    row = q.stride(1)
+    row = q.stride(1) if s > 1 else q.stride(0)
     want = (s * row, row, hd, 1)
     for name, t in (("q", q), ("k", k), ("v", v)):
-        if t.stride() != want or t.device != q.device:
+        # a dimension of size 1 may carry any stride
+        if t.device != q.device or any(
+                st != w and n > 1 for st, w, n in zip(t.stride(), want, t.shape)):
             raise ValueError(
                 f"encoder_attention: {name} strides {t.stride()} on "
                 f"{t.device}, expected {want} on {q.device}")
@@ -102,14 +126,17 @@ def encoder_attention(q, k, v, key_bias, *, sm_scale: float):
     if out.numel() == 0:
         return out
     lib = _kernel()
+    # 16-byte copies of K and V rows need aligned views and row strides
+    vec = int(row % 8 == 0 and all(t.data_ptr() % 16 == 0 for t in (q, k, v)))
     with torch.cuda.device(q.device):
         rc = lib.archi_encoder_attention(
             _DTYPE_CODES[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
             row, key_bias.data_ptr(), out.data_ptr(), b, s, nh, hd,
-            sm_scale * LOG2E, torch.cuda.current_stream(q.device).cuda_stream)
+            sm_scale * LOG2E, vec,
+            torch.cuda.current_stream(q.device).cuda_stream)
     if rc != 0:
         raise RuntimeError(
             f"encoder_attention launch: "
             f"{lib.archi_attention_error_string(rc).decode()} (error {rc})")
-    LAUNCHES["encoder_attention"] += 1
+    count_launch("encoder_attention", _ROUTES[q.dtype])
     return out

@@ -3,7 +3,8 @@
 Counterpart of ``archi_tpu/ops/pallas_topk.py`` (``fused_topk``).  Both
 functions return the top-k of ``q · E[i] + bias[i]`` over a padded corpus,
 rows ``>= n_active`` scored ``NEG_INF``, equal scores ranked by the lower
-row.  ``fused_topk`` launches ``csrc/fused_topk.cu`` on CUDA tensors and
+row.  ``fused_topk`` launches ``csrc/fused_topk.cu`` on CUDA tensors —
+bf16 and int8 corpora on the tensor cores, f32 on the CUDA cores — and
 takes ``plain_topk`` on CPU tensors.
 """
 
@@ -13,7 +14,7 @@ import ctypes
 
 import torch
 
-from archi_tpu_torch.ops import LAUNCHES, _build
+from archi_tpu_torch.ops import _build, count_launch
 
 NEG_INF = -1.0e30
 #: largest k the kernel keeps (the TPU kernel's 128-lane running buffer)
@@ -22,6 +23,9 @@ MAX_K = 128
 MAX_INT8_DIM = 1040
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
+#: f32 corpora are scored on the CUDA cores, bf16 and int8 on the tensor cores
+_ROUTES = {torch.float32: "cuda_core", torch.bfloat16: "tensor_core",
+           torch.int8: "tensor_core"}
 
 
 def quantize_int8(x: torch.Tensor) -> torch.Tensor:
@@ -64,7 +68,7 @@ def _kernel():
         vp, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
         lib.archi_fused_topk_plan.restype = i
         lib.archi_fused_topk_plan.argtypes = [
-            i, i, i, i, i, ctypes.POINTER(i), ctypes.POINTER(i)]
+            i, i, i, i, i, i, ctypes.POINTER(i), ctypes.POINTER(i)]
         lib.archi_fused_topk.restype = i
         lib.archi_fused_topk.argtypes = [
             i, vp, vp, vp, i, i, i, i, i, i, f, i, i, i, vp, vp, vp, vp, vp]
@@ -129,15 +133,17 @@ def fused_topk(queries, corpus, bias, n_active, *, k: int = 10):
     with torch.cuda.device(corpus.device):
         splits, rows_per_split = ctypes.c_int(), ctypes.c_int()
         _check(lib, lib.archi_fused_topk_plan(
-            code, b, d, n_active, k, ctypes.byref(splits),
+            code, b, d, n_active, k, int(bias.dim() == 2), ctypes.byref(splits),
             ctypes.byref(rows_per_split)), "fused_topk plan")
         dev = corpus.device
         part_v = torch.empty((b, splits.value, k), dtype=torch.float32, device=dev)
         part_i = torch.empty((b, splits.value, k), dtype=torch.int32, device=dev)
         out_v = torch.empty((b, k), dtype=torch.float32, device=dev)
         out_i = torch.empty((b, k), dtype=torch.int32, device=dev)
-        # 16-byte row loads need whole 32-element chunks at aligned rows
-        vec = int(d % 32 == 0 and corpus.data_ptr() % 16 == 0)
+        # 16-byte row loads need aligned rows: f32 in whole 32-element
+        # chunks, bf16 and int8 in whole 16-byte pieces
+        step = 32 if corpus.dtype == torch.float32 else 16 // corpus.element_size()
+        vec = int(d % step == 0 and corpus.data_ptr() % 16 == 0)
         scale = 1.0 / (127.0 * 127.0) if corpus.dtype == torch.int8 else 1.0
         _check(lib, lib.archi_fused_topk(
             code, q.data_ptr(), corpus.data_ptr(), bias.data_ptr(),
@@ -146,5 +152,5 @@ def fused_topk(queries, corpus, bias, n_active, *, k: int = 10):
             part_v.data_ptr(), part_i.data_ptr(), out_v.data_ptr(),
             out_i.data_ptr(), torch.cuda.current_stream(dev).cuda_stream),
             "fused_topk launch")
-    LAUNCHES["fused_topk"] += 1
+    count_launch("fused_topk", _ROUTES[corpus.dtype])
     return out_v, out_i

@@ -80,6 +80,58 @@ def test_fused_topk_matches_plain(dev, dtype, b, d, n_pad, n_active, k,
     assert_topk_matches(vals, idx, ref_vals, scores, atol=1e-5)
 
 
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.int8])
+@pytest.mark.parametrize("b,d,k,per_query", [
+    (1, 384, 10, False), (7, 100, 128, True), (32, 384, 10, True),
+    (33, 768, 1, False), (256, 32, 10, True), (256, 384, 128, False),
+])
+def test_fused_topk_tensor_core_route(dev, dtype, b, d, k, per_query):
+    """bf16 and int8 corpora take the tensor-core kernel (ragged n_active,
+    D not a multiple of the 128-byte stage, 8 / 32 / 64 queries a CTA):
+    bf16 within 1e-4 of the plain version, tie-aware; int8 identical."""
+    from archi_tpu_torch.ops import ROUTE_LAUNCHES
+    from archi_tpu_torch.ops.topk import _scores
+
+    n_pad, n_active = 30_000, 29_011
+    q, e, bias = _case(dev, b, d, n_pad, n_active, dtype, per_query, seed=b + d)
+    before = dict(ROUTE_LAUNCHES)
+    vals, idx = fused_topk(q, e, bias, n_active, k=k)
+    torch.cuda.synchronize()
+    assert ROUTE_LAUNCHES["fused_topk:tensor_core"] == \
+        before["fused_topk:tensor_core"] + 1
+    assert ROUTE_LAUNCHES["fused_topk:cuda_core"] == before["fused_topk:cuda_core"]
+    ref_vals, ref_idx = plain_topk(q, e, bias, n_active, k=k)
+    if dtype == torch.int8:
+        assert torch.equal(vals, ref_vals) and torch.equal(idx, ref_idx)
+        return
+    col = torch.arange(n_pad, device=dev)
+    scores = torch.where(col < n_active, _scores(q, e) + bias, NEG_INF)
+    assert_topk_matches(vals, idx, ref_vals, scores, atol=1e-4)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.int8])
+def test_fused_topk_ties_across_tiles_and_splits(dev, dtype):
+    """Rows duplicated across 128-row tiles and across splits score equal;
+    the lower row ranks first, exactly as in the plain stable sort."""
+    q, e, bias = _case(dev, 40, 384, 50_000, 50_000, dtype, False, seed=9)
+    bias.zero_()
+    src = torch.arange(0, 50_000, 97, device=dev)
+    for shift in (1, 127, 128, 4099, 25_001):   # within a tile, next tile, far
+        dst = (src + shift) % 50_000
+        e[dst] = e[src]
+    vals, idx = fused_topk(q, e, bias, 50_000, k=64)
+    ref_vals, ref_idx = plain_topk(q, e, bias, 50_000, k=64)
+    if dtype == torch.int8:
+        assert torch.equal(vals, ref_vals) and torch.equal(idx, ref_idx)
+    else:   # f32 sums in another order: distinct rows may swap on near-ties
+        from archi_tpu_torch.ops.topk import _scores
+        assert_topk_matches(vals, idx, ref_vals, _scores(q, e) + bias, atol=1e-4)
+    v, i = vals.cpu(), idx.cpu()
+    tied = v[:, 1:] == v[:, :-1]
+    assert tied.sum() >= 10          # the duplicates reached the top-64
+    assert bool((i[:, 1:][tied] > i[:, :-1][tied]).all())
+
+
 def _random_case(seed):
     """A random shape: batch across both query-block sizes, any D, a
     ragged n_pad, n_active anywhere, k up to 128, either bias kind."""
@@ -204,6 +256,76 @@ def test_encoder_attention_random_shapes(dev, seed):
     assert torch.isfinite(out.float()).all()
     rtol, atol = (0, 2e-5) if dtype == torch.float32 else (2 ** -7, 1e-3)
     torch.testing.assert_close(out.float(), ref.float(), rtol=rtol, atol=atol)
+
+
+def assert_bf16_attention_close(out, q, k, v, key_bias, sm_scale):
+    """Within one bf16 step of the plain version's output (2^-7 |ref| +
+    1e-3, as for the CUDA-core kernel) plus one bf16 step of each rounded
+    probability (``p_rounding_bound``): the logits are summed in another
+    order, so a p next to a rounding boundary may round the other way."""
+    from archi_tpu_torch.ops.attention import p_rounding_bound
+
+    ref = plain_attention(q, k, v, key_bias, sm_scale=sm_scale).float()
+    tol = (ref.abs() * 2.0 ** -7 + 1e-3
+           + p_rounding_bound(q, k, v, key_bias, sm_scale=sm_scale))
+    excess = (out.float() - ref).abs() - tol
+    assert float(excess.max()) <= 0, float(excess.max())
+
+
+def _attention_inputs(dev, b, s, nh, hd, seed):
+    """bf16 q, k, v as strided views of one [B, S, 3H] projection; key bias
+    with ragged lengths, row 0 fully masked."""
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    h = nh * hd
+    qkv = torch.randn(b, s, 3 * h, generator=g).to(dev, torch.bfloat16)
+    q, k, v = (qkv[..., i * h:(i + 1) * h].view(b, s, nh, hd) for i in range(3))
+    lens = torch.randint(1, s + 1, (b,), generator=g)
+    lens[0] = 0
+    key_bias = ((torch.arange(s)[None, :] >= lens[:, None]).float()
+                * -1e9).to(dev)
+    return q, k, v, key_bias
+
+
+@pytest.mark.parametrize("hd", [8, 16, 32, 64])
+@pytest.mark.parametrize("s", [1, 17, 64, 128, 200, 512])
+def test_attention_tensor_core_route(dev, s, hd):
+    """bf16 takes the tensor-core kernel: within one bf16 step of the plain
+    version, which rounds p to bf16 as the kernel does."""
+    from archi_tpu_torch.ops import ROUTE_LAUNCHES
+
+    q, k, v, key_bias = _attention_inputs(dev, 3, s, 2, hd, seed=s + hd)
+    before = dict(ROUTE_LAUNCHES)
+    out = encoder_attention(q, k, v, key_bias, sm_scale=hd ** -0.5)
+    torch.cuda.synchronize()
+    assert ROUTE_LAUNCHES["encoder_attention:tensor_core"] == \
+        before["encoder_attention:tensor_core"] + 1
+    assert ROUTE_LAUNCHES["encoder_attention:cuda_core"] == \
+        before["encoder_attention:cuda_core"]
+    assert torch.isfinite(out.float()).all()
+    assert_bf16_attention_close(out, q, k, v, key_bias, hd ** -0.5)
+
+
+@pytest.mark.parametrize("b,s,hd", [(256, 128, 32), (256, 64, 32),
+                                    (64, 512, 64), (200, 17, 8)])
+def test_attention_tensor_core_large_batches(dev, b, s, hd):
+    q, k, v, key_bias = _attention_inputs(dev, b, s, 12, hd, seed=b + s)
+    out = encoder_attention(q, k, v, key_bias, sm_scale=hd ** -0.5)
+    assert_bf16_attention_close(out, q, k, v, key_bias, hd ** -0.5)
+
+
+def test_attention_tensor_core_unaligned_views(dev):
+    """Views off 16-byte alignment take the element-wise copies into shared
+    memory and give the same result as aligned copies."""
+    q, k, v, key_bias = _attention_inputs(dev, 4, 100, 3, 16, seed=5)
+    buf = torch.empty(q.numel() * 3 + 1, dtype=torch.bfloat16, device=dev)
+    qkv = buf[1:].view(4, 100, 3 * 48)
+    qkv.copy_(torch.cat([q.reshape(4, 100, 48), k.reshape(4, 100, 48),
+                         v.reshape(4, 100, 48)], dim=2))
+    views = [qkv[..., i * 48:(i + 1) * 48].view(4, 100, 3, 16) for i in range(3)]
+    assert views[0].data_ptr() % 16 != 0
+    out = encoder_attention(*views, key_bias, sm_scale=0.25)
+    want = encoder_attention(q, k, v, key_bias, sm_scale=0.25)
+    assert torch.equal(out, want)
 
 
 def test_encoder_on_card_matches_cpu(dev):

@@ -138,11 +138,11 @@ def test_wrappers_raise_on_devices_they_do_not_serve():
 
 
 def test_cpu_wrappers_count_no_launches():
-    from archi_tpu_torch.ops import LAUNCHES
+    from archi_tpu_torch.ops import LAUNCHES, ROUTE_LAUNCHES
     from archi_tpu_torch.ops.attention import encoder_attention
     from archi_tpu_torch.ops.topk import fused_topk
 
-    before = dict(LAUNCHES)
+    before, routes_before = dict(LAUNCHES), dict(ROUTE_LAUNCHES)
     rng = np.random.default_rng(0)
     e = torch.from_numpy(rng.standard_normal((64, 8)).astype(np.float32))
     fused_topk(e[:2], e, torch.zeros(64), 64, k=3)
@@ -157,7 +157,7 @@ def test_cpu_wrappers_count_no_launches():
     assert adc_scores_lut16(luts, pack_nibbles(codes.t()).t()).shape == (2, 33)
     assert set(LAUNCHES) == {"fused_topk", "encoder_attention", "adc_scores",
                              "adc_scores_lut16"}
-    assert LAUNCHES == before
+    assert LAUNCHES == before and ROUTE_LAUNCHES == routes_before
 
 
 def test_build_finds_sources_and_needs_nvcc(monkeypatch, tmp_path):
