@@ -27,7 +27,8 @@
 // Two routes, chosen by the input type:
 //
 // bf16: tc_attention_kernel, on the tensor cores (mma.sync m16n8k16, bf16
-//   operands, f32 accumulators).  One CTA of 4 warps per (head, batch row).
+//   operands, f32 accumulators).  One CTA per (head, batch row), one warp
+//   per 16 query rows up to 8 warps.
 //   K and V of that head (S <= 512 rows of hd) are copied once into shared
 //   memory with cp.async (16 bytes a thread) in rows padded by 16 bytes, so
 //   the ldmatrix loads of the fragments hit eight different bank groups;
@@ -174,7 +175,7 @@ attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
 }
 
 // ---------------------------------------------------------------- bf16
-constexpr int kTcWarps = 4;
+constexpr int kTcMaxWarps = 8;  // warps a CTA: one per 16 query rows, at most 8
 
 __host__ __device__ constexpr int tc_depth(int hd) { return hd < 16 ? 16 : hd; }
 // shared-memory row of K and V, in elements: the q k^T depth + 16 bytes
@@ -214,7 +215,7 @@ __device__ __forceinline__ void qk_tile(const uint32_t (&qa)[tc_depth(HD) / 16][
 }
 
 template <int HD>
-__global__ void __launch_bounds__(kTcWarps * 32)
+__global__ void __launch_bounds__(kTcMaxWarps * 32)
 tc_attention_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
                     const __nv_bfloat16* __restrict__ v, int in_stride,
                     const float* __restrict__ key_bias, __nv_bfloat16* __restrict__ out,
@@ -230,11 +231,12 @@ tc_attention_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __
 
   const int h = blockIdx.x, b = blockIdx.y;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int warps = blockDim.x >> 5;
   const size_t base = static_cast<size_t>(b) * S * in_stride + static_cast<size_t>(h) * HD;
   const float* kb = key_bias + static_cast<size_t>(b) * S;
 
   // K and V of this head into shared memory; keys past S are zero
-  for (int x = tid; x < sp * CH; x += kTcWarps * 32) {
+  for (int x = tid; x < sp * CH; x += blockDim.x) {
     const int j = x / CH, c = (x - j * CH) * 8;
     const size_t off = base + static_cast<size_t>(j) * in_stride + c;
     if (vec) {
@@ -255,9 +257,9 @@ tc_attention_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __
   }
   tc::cp_async_commit();
   if (KD > HD)  // hd = 8: the depth of q k^T is padded to 16 with zeros
-    for (int j = tid; j < sp; j += kTcWarps * 32)
+    for (int j = tid; j < sp; j += blockDim.x)
       *reinterpret_cast<uint4*>(ks + j * ST + HD) = make_uint4(0, 0, 0, 0);
-  for (int j = tid; j < sp; j += kTcWarps * 32)
+  for (int j = tid; j < sp; j += blockDim.x)
     bs[j] = j < S ? __fmul_rn(kb[j], kLog2e) : -INFINITY;
 
   const int g = lane >> 2, t = lane & 3;
@@ -280,7 +282,7 @@ tc_attention_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __
   tc::cp_async_wait<0>();
   __syncthreads();
 
-  for (int tile = warp; tile < nq_tiles; tile += kTcWarps) {
+  for (int tile = warp; tile < nq_tiles; tile += warps) {
     const int m0 = tile * 16;
     if (tile != warp) load_q(m0);
 
@@ -383,7 +385,8 @@ cudaError_t launch_tc(const void* q, const void* k, const void* v, int in_stride
     if (err != cudaSuccess) return err;
     opted = cap;
   }
-  tc_attention_kernel<HD><<<dim3(nh, B), kTcWarps * 32, smem, stream>>>(
+  const int warps = min(kTcMaxWarps, (S + 15) / 16);
+  tc_attention_kernel<HD><<<dim3(nh, B), warps * 32, smem, stream>>>(
       static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
       static_cast<const __nv_bfloat16*>(v), in_stride, key_bias,
       static_cast<__nv_bfloat16*>(out), S, nh, scale_log2, vec);

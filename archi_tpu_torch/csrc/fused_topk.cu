@@ -30,7 +30,8 @@
 //     keeps a sorted k-list per query in shared memory.
 //     - bf16 / int8 (tc_topk_partial_kernel): QB (8, 32 or 64) queries sit
 //       in shared memory in the corpus type, rows padded by 16 bytes.  The
-//       tiles arrive 128 bytes of depth at a time through a 4-stage ring of
+//       tiles arrive 128 bytes of depth at a time through a ring of 6
+//       stages (3 where only that lets two CTAs share an SM) of
 //       cp.async copies (16 bytes a thread), swizzled (16-byte piece
 //       u of row r at u ^ (r & 7)) so the ldmatrix loads are conflict
 //       free; a D that is not a multiple of the 128 bytes is zero-filled.
@@ -41,8 +42,8 @@
 //       of rows per query; each score is gated against its query's k-th
 //       entry in registers, and the survivors go to a per-query candidate
 //       buffer in shared memory, which each warp merges into the k-lists of
-//       its queries after the tile.  Once a list is full the survivors are
-//       rare, so the selection costs little beside the products.
+//       its queries after the tile (for k <= 32 with the list held one entry
+//       a lane in registers).  Once a list is full the survivors are rare.
 //     - f32 (topk_partial_kernel): QB (8 or 32) queries in shared memory
 //       as f32, 128-row tiles in 32-deep chunks (the next chunk is loaded
 //       into registers while the current one is used), scalar fmaf, each
@@ -145,6 +146,42 @@ __device__ __forceinline__ void warp_offer(float* lv, int* li, int k, float v,
       thr_i = li[k - 1];
     }
   }
+}
+
+// Merges n candidates (cv, ci) into the sorted list (lv, li) of length
+// k <= 32, which the warp holds one entry a lane in registers meanwhile: an
+// insertion is a ballot for its position and a shuffle of the entries below.
+__device__ void merge_small(float* lv, int* li, int k, const float* cv, const int* ci, int n) {
+  const unsigned all = 0xffffffffu;
+  const int lane = threadIdx.x & 31;
+  float v = lane < k ? lv[lane] : -INFINITY;
+  int r = lane < k ? li[lane] : INT_MAX;
+  float thr_v = __shfl_sync(all, v, k - 1);
+  int thr_i = __shfl_sync(all, r, k - 1);
+  for (int base = 0; base < n; base += 32) {
+    const int x = base + lane;
+    const bool valid = x < n;
+    const float cvv = valid ? cv[x] : -INFINITY;
+    const int cii = valid ? ci[x] : INT_MAX;
+    unsigned m = __ballot_sync(all, valid && better(cvv, cii, thr_v, thr_i));
+    while (m) {
+      const int src = __ffs(m) - 1;
+      m &= m - 1;
+      const float nv = __shfl_sync(all, cvv, src);
+      const int ni = __shfl_sync(all, cii, src);
+      if (!better(nv, ni, thr_v, thr_i)) continue;  // warp-uniform
+      // the entries ahead of (nv, ni) are a prefix of the sorted list
+      const int p = __popc(__ballot_sync(all, lane < k && better(v, r, nv, ni)));
+      const float up_v = __shfl_up_sync(all, v, 1);
+      const int up_r = __shfl_up_sync(all, r, 1);
+      if (lane > p) { v = up_v; r = up_r; }
+      if (lane == p) { v = nv; r = ni; }
+      thr_v = __shfl_sync(all, v, k - 1);
+      thr_i = __shfl_sync(all, r, k - 1);
+    }
+  }
+  if (lane < k) { lv[lane] = v; li[lane] = r; }
+  __syncwarp();
 }
 
 __host__ __device__ constexpr int round_up(int x, int m) { return (x + m - 1) / m * m; }
@@ -275,21 +312,22 @@ topk_partial_kernel(const T* __restrict__ q, const T* __restrict__ e,
 }
 
 // ------------------------------------------------- bf16 / int8, tensor cores
-constexpr int kStages = 4;                        // cp.async ring depth
+constexpr int kDeepRing = 6;                      // cp.async ring depths:
+constexpr int kShallowRing = 3;                   // see tc_route
 constexpr int kChunkB = 128;                      // bytes of depth a stage
 constexpr int kStageB = kTileN * kChunkB;         // 16 KB a stage
 constexpr int kLoadsPerThread = kStageB / 16 / kThreads;
 
 // shared memory of tc_topk_partial_kernel: ring, queries, k-lists,
 // candidate buffers and their counts
-size_t tc_smem_bytes(int qb, int d, int esize, int k) {
+size_t tc_smem_bytes(int stages, int qb, int d, int esize, int k) {
   const size_t qrow = static_cast<size_t>(round_up(d * esize, kChunkB)) + 16;
-  return static_cast<size_t>(kStages) * kStageB + qb * qrow +
+  return static_cast<size_t>(stages) * kStageB + qb * qrow +
          static_cast<size_t>(qb) * k * 8 + static_cast<size_t>(qb) * kTileN * 8 +
          static_cast<size_t>(qb) * 4;
 }
 
-template <typename T, int QB, bool PER_QUERY>
+template <typename T, int QB, bool PER_QUERY, int NS>
 __global__ void __launch_bounds__(kThreads, 1)  // shared memory allows 1-2 CTAs
 tc_topk_partial_kernel(const T* __restrict__ q, const T* __restrict__ e,
                        const float* __restrict__ bias, int bias_stride, int B,
@@ -304,7 +342,7 @@ tc_topk_partial_kernel(const T* __restrict__ q, const T* __restrict__ e,
   const int nch = (RB + kChunkB - 1) / kChunkB;     // stages a tile
   const int QSB = nch * kChunkB + 16;               // query row in shared
   unsigned char* ring = reinterpret_cast<unsigned char*>(smem);
-  unsigned char* qs = ring + kStages * kStageB;
+  unsigned char* qs = ring + NS * kStageB;
   float* lv = reinterpret_cast<float*>(qs + QB * QSB);  // [QB][k]
   int* li = reinterpret_cast<int*>(lv + QB * k);
   float* cv = reinterpret_cast<float*>(li + QB * k);    // [QB][kTileN]
@@ -325,7 +363,7 @@ tc_topk_partial_kernel(const T* __restrict__ q, const T* __restrict__ e,
   auto load_stage = [&](int step) {
     const int tile = step / nch, ch = step - tile * nch;
     const int t0 = row_begin + tile * kTileN;
-    unsigned char* st = ring + (step % kStages) * kStageB;
+    unsigned char* st = ring + (step % NS) * kStageB;
 #pragma unroll
     for (int i = 0; i < kLoadsPerThread; ++i) {
       const int c = tid + i * kThreads;
@@ -342,7 +380,8 @@ tc_topk_partial_kernel(const T* __restrict__ q, const T* __restrict__ e,
     }
   };
 #pragma unroll
-  for (int s = 0; s < kStages - 1; ++s) {
+#pragma unroll
+  for (int s = 0; s < NS - 1; ++s) {
     if (s < nsteps) load_stage(s);
     tc::cp_async_commit();
   }
@@ -364,9 +403,9 @@ tc_topk_partial_kernel(const T* __restrict__ q, const T* __restrict__ e,
   Acc acc[NT][4];
   float br[PER_QUERY ? NT : 1][4];
   for (int step = 0; step < nsteps; ++step) {
-    tc::cp_async_wait<kStages - 2>();
+    tc::cp_async_wait<NS - 2>();
     __syncthreads();  // stage `step` is in; stage step - 1 is no longer read
-    if (step + kStages - 1 < nsteps) load_stage(step + kStages - 1);
+    if (step + NS - 1 < nsteps) load_stage(step + NS - 1);
     tc::cp_async_commit();
 
     const int tile = step / nch, ch = step - tile * nch;
@@ -390,7 +429,7 @@ tc_topk_partial_kernel(const T* __restrict__ q, const T* __restrict__ e,
         }
     }
 
-    const unsigned char* st = ring + (step % kStages) * kStageB;
+    const unsigned char* st = ring + (step % NS) * kStageB;
     const int ar = warp * 16 + (lane & 7) + ((lane >> 3) & 1) * 8;
 #pragma unroll
     for (int kp = 0; kp < kChunkB / 32; kp += 2) {  // two 32-byte k-steps
@@ -418,34 +457,42 @@ tc_topk_partial_kernel(const T* __restrict__ q, const T* __restrict__ e,
 
     // epilogue: scores that beat their query's k-th entry become candidates
 #pragma unroll
-    for (int n = 0; n < NT; ++n)
+    for (int n = 0; n < NT; ++n) {
+      // the k-th scores of this thread's two queries (2t, 2t + 1)
+      const int qa = n * 8 + 2 * t;
+      const float thr[2] = {lv[qa * k + k - 1], lv[(qa + 1) * k + k - 1]};
 #pragma unroll
       for (int c = 0; c < 4; ++c) {
         const int row = r0 + (c >> 1) * 8;
-        const int qi = n * 8 + 2 * t + (c & 1);
+        const int qi = qa + (c & 1);
         if (row >= row_end || q0 + qi >= B) continue;
         // the product rounds before the bias is added (no FMA), as in the
         // plain version and the TPU kernel
         const float v = __fmul_rn(static_cast<float>(acc[n][c]), scale) +
                         br[PER_QUERY ? n : 0][c];
-        if (better(v, row, lv[qi * k + k - 1], li[qi * k + k - 1])) {
+        if (v > thr[c & 1] || (v == thr[c & 1] && row < li[qi * k + k - 1])) {
           const int p = atomicAdd(&cnt[qi], 1);
           cv[qi * kTileN + p] = v;
           ci[qi * kTileN + p] = row;
         }
       }
+    }
     __syncthreads();
     // each warp merges the candidates of its queries into their k-lists
     for (int qi = warp; qi < QB; qi += kWarps) {
       const int n = cnt[qi];
       if (n == 0) continue;
-      float thr_v = lv[qi * k + k - 1];
-      int thr_i = li[qi * k + k - 1];
-      for (int base = 0; base < n; base += 32) {
-        const int x = base + lane;
-        const bool valid = x < n;
-        warp_offer(lv + qi * k, li + qi * k, k, valid ? cv[qi * kTileN + x] : -INFINITY,
-                   valid ? ci[qi * kTileN + x] : INT_MAX, valid, thr_v, thr_i);
+      if (k <= 32) {
+        merge_small(lv + qi * k, li + qi * k, k, cv + qi * kTileN, ci + qi * kTileN, n);
+      } else {
+        float thr_v = lv[qi * k + k - 1];
+        int thr_i = li[qi * k + k - 1];
+        for (int base = 0; base < n; base += 32) {
+          const int x = base + lane;
+          const bool valid = x < n;
+          warp_offer(lv + qi * k, li + qi * k, k, valid ? cv[qi * kTileN + x] : -INFINITY,
+                     valid ? ci[qi * kTileN + x] : INT_MAX, valid, thr_v, thr_i);
+        }
       }
       if (lane == 0) cnt[qi] = 0;
     }
@@ -479,12 +526,18 @@ topk_merge_kernel(const float* __restrict__ part_v, const int* __restrict__ part
   const size_t n = static_cast<size_t>(splits) * k;
   const float* pv = part_v + static_cast<size_t>(qg) * n;
   const int* pi = part_i + static_cast<size_t>(qg) * n;
-  for (size_t base = 0; base < n; base += 32) {
-    const size_t x = base + lane;
-    const bool valid = x < n;
-    const float v = valid ? pv[x] : -INFINITY;
-    const int r = valid ? pi[x] : INT_MAX;
-    warp_offer(lv, li, k, v, r, valid, thr_v, thr_i);
+  if (k <= 32) {
+    merge_small(lv, li, k, pv, pi, static_cast<int>(n));
+    thr_v = lv[k - 1];
+    thr_i = li[k - 1];
+  } else {
+    for (size_t base = 0; base < n; base += 32) {
+      const size_t x = base + lane;
+      const bool valid = x < n;
+      const float v = valid ? pv[x] : -INFINITY;
+      const int r = valid ? pi[x] : INT_MAX;
+      warp_offer(lv, li, k, v, r, valid, thr_v, thr_i);
+    }
   }
   // the masked rows: (NEG_INF, n_active + x) for the first k of them
   const int masked = min(k, n_pad - n_active);
@@ -511,21 +564,35 @@ Route f32_route(int D, int k) {
           partial_smem_bytes(QB, D, k)};
 }
 
-template <typename T, int QB>
+template <typename T, int QB, int NS>
 Route tc_route(int D, int k, bool per_query) {
-  const void* fn = per_query
-                       ? reinterpret_cast<const void*>(tc_topk_partial_kernel<T, QB, true>)
-                       : reinterpret_cast<const void*>(tc_topk_partial_kernel<T, QB, false>);
-  return {fn, QB, tc_smem_bytes(QB, D, sizeof(T), k)};
+  const void* fn =
+      per_query ? reinterpret_cast<const void*>(tc_topk_partial_kernel<T, QB, true, NS>)
+                : reinterpret_cast<const void*>(tc_topk_partial_kernel<T, QB, false, NS>);
+  return {fn, QB, tc_smem_bytes(NS, QB, D, sizeof(T), k)};
+}
+
+// The deep ring, unless only the shallow one lets two CTAs share an SM: a
+// CTA of 8 warps waits at a barrier every stage, and a second CTA hides
+// that better than more stages do (H100 runs, PERF.md).  The depth is a
+// template argument: a depth known only at run time measured slower.
+template <typename T, int QB>
+Route tc_route(int D, int k, bool per_query, int sm_smem) {
+  const auto fits_two = [&](int ns) {
+    return 2 * (tc_smem_bytes(ns, QB, D, sizeof(T), k) + 1024) <= static_cast<size_t>(sm_smem);
+  };
+  if (!fits_two(kDeepRing) && fits_two(kShallowRing))
+    return tc_route<T, QB, kShallowRing>(D, k, per_query);
+  return tc_route<T, QB, kDeepRing>(D, k, per_query);
 }
 
 template <typename T>
-Route tc_route(int qb, int D, int k, bool per_query) {
+Route tc_route(int qb, int D, int k, bool per_query, int sm_smem) {
   switch (qb) {
-    case 8: return tc_route<T, 8>(D, k, per_query);
-    case 32: return tc_route<T, 32>(D, k, per_query);
+    case 8: return tc_route<T, 8>(D, k, per_query, sm_smem);
+    case 32: return tc_route<T, 32>(D, k, per_query, sm_smem);
   }
-  return tc_route<T, 64>(D, k, per_query);
+  return tc_route<T, 64>(D, k, per_query, sm_smem);
 }
 
 // dtype 0: f32 on the CUDA cores, 8 or 32 queries a CTA.  1 (bf16) and 2
@@ -533,18 +600,20 @@ Route tc_route(int qb, int D, int k, bool per_query) {
 // can use whose shared memory fits.
 cudaError_t pick_route(int dtype, int B, int D, int k, int per_query, Route* r) {
   if (dtype < 0 || dtype > 2) return cudaErrorInvalidValue;
-  int dev = 0, cap = 0;
+  int dev = 0, cap = 0, sm_smem = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err == cudaSuccess)
     err = cudaDeviceGetAttribute(&cap, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&sm_smem, cudaDevAttrMaxSharedMemoryPerMultiprocessor, dev);
   if (err != cudaSuccess) return err;
   if (dtype == 0) {
     *r = B <= 8 ? f32_route<8>(D, k) : f32_route<32>(D, k);
     if (r->smem > static_cast<size_t>(cap)) return cudaErrorInvalidValue;
   } else {
     for (int qb = B <= 8 ? 8 : (B <= 32 ? 32 : 64);; qb = qb == 64 ? 32 : 8) {
-      *r = dtype == 1 ? tc_route<__nv_bfloat16>(qb, D, k, per_query)
-                      : tc_route<int8_t>(qb, D, k, per_query);
+      *r = dtype == 1 ? tc_route<__nv_bfloat16>(qb, D, k, per_query, sm_smem)
+                      : tc_route<int8_t>(qb, D, k, per_query, sm_smem);
       if (r->smem <= static_cast<size_t>(cap)) break;
       if (qb == 8) return cudaErrorInvalidValue;  // D too large for shared memory
     }
