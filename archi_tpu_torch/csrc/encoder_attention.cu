@@ -69,11 +69,6 @@ constexpr int kQT = 128;  // query rows per CTA (one per thread)
 constexpr int kKC = 64;   // keys per shared-memory chunk
 constexpr float kLog2e = 1.4426950408889634f;
 
-__device__ __forceinline__ float to_f32(float x) { return x; }
-
-template <typename T> __device__ __forceinline__ T from_f32(float x);
-template <> __device__ __forceinline__ float from_f32<float>(float x) { return x; }
-
 template <int HD>
 __device__ __forceinline__ float dot_row(const float (&qr)[HD], const float* kr) {
   float s = 0.f;
@@ -90,9 +85,9 @@ __device__ __forceinline__ float dot_row(const float (&qr)[HD], const float* kr)
 
 // Loads keys [c0, c0 + n) of head h into ks (and vs when given) and the
 // log2e-scaled key bias into bs; rows past n are zero.
-template <typename T, int HD>
-__device__ __forceinline__ void load_keys(const T* __restrict__ k,
-                                          const T* __restrict__ v,
+template <int HD>
+__device__ __forceinline__ void load_keys(const float* __restrict__ k,
+                                          const float* __restrict__ v,
                                           const float* __restrict__ kb,
                                           size_t base, int in_stride, int c0,
                                           int n, float* ks, float* vs,
@@ -101,17 +96,17 @@ __device__ __forceinline__ void load_keys(const T* __restrict__ k,
     const int j = x / HD, d = x - j * HD;
     const size_t off = base + static_cast<size_t>(c0 + j) * in_stride + d;
     const bool ok = j < n;
-    ks[x] = ok ? to_f32(k[off]) : 0.f;
-    if (vs != nullptr) vs[x] = ok ? to_f32(v[off]) : 0.f;
+    ks[x] = ok ? k[off] : 0.f;
+    if (vs != nullptr) vs[x] = ok ? v[off] : 0.f;
   }
   for (int j = threadIdx.x; j < kKC; j += kQT) bs[j] = j < n ? __fmul_rn(kb[c0 + j], kLog2e) : 0.f;
 }
 
-template <typename T, int HD>
+template <int HD>
 __global__ void __launch_bounds__(kQT)
-attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                 const T* __restrict__ v, int in_stride,
-                 const float* __restrict__ key_bias, T* __restrict__ out,
+attention_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                 const float* __restrict__ v, int in_stride,
+                 const float* __restrict__ key_bias, float* __restrict__ out,
                  int S, int nh, float scale_log2) {
   __shared__ __align__(16) float ks[kKC * HD];
   __shared__ __align__(16) float vs[kKC * HD];
@@ -127,14 +122,14 @@ attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
   float qr[HD];
 #pragma unroll
   for (int d = 0; d < HD; ++d)
-    qr[d] = active ? to_f32(q[base + static_cast<size_t>(row) * in_stride + d]) : 0.f;
+    qr[d] = active ? q[base + static_cast<size_t>(row) * in_stride + d] : 0.f;
 
   // pass 1: the row max of the logits
   float m = -INFINITY;
   for (int c0 = 0; c0 < S; c0 += kKC) {
     const int n = min(kKC, S - c0);
     __syncthreads();  // the previous chunk is no longer read
-    load_keys<T, HD>(k, v, kb, base, in_stride, c0, n, ks, nullptr, bs);
+    load_keys<HD>(k, v, kb, base, in_stride, c0, n, ks, nullptr, bs);
     __syncthreads();
     for (int j = 0; j < n; ++j)
       m = fmaxf(m, __fmul_rn(dot_row<HD>(qr, ks + j * HD), scale_log2) + bs[j]);
@@ -148,7 +143,7 @@ attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
   for (int c0 = 0; c0 < S; c0 += kKC) {
     const int n = min(kKC, S - c0);
     __syncthreads();
-    load_keys<T, HD>(k, v, kb, base, in_stride, c0, n, ks, vs, bs);
+    load_keys<HD>(k, v, kb, base, in_stride, c0, n, ks, vs, bs);
     __syncthreads();
     for (int j = 0; j < n; ++j) {
       const float p =
@@ -168,9 +163,9 @@ attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
   if (active) {
     const float inv = 1.0f / l;
-    T* dst = out + (static_cast<size_t>(b) * S + row) * nh * HD + static_cast<size_t>(h) * HD;
+    float* dst = out + (static_cast<size_t>(b) * S + row) * nh * HD + static_cast<size_t>(h) * HD;
 #pragma unroll
-    for (int d = 0; d < HD; ++d) dst[d] = from_f32<T>(acc[d] * inv);
+    for (int d = 0; d < HD; ++d) dst[d] = acc[d] * inv;
   }
 }
 
@@ -393,14 +388,14 @@ cudaError_t launch_tc(const void* q, const void* k, const void* v, int in_stride
   return cudaGetLastError();
 }
 
-template <typename T, int HD>
+template <int HD>
 cudaError_t launch_t(const void* q, const void* k, const void* v,
                      int in_stride, const float* key_bias, void* out, int B,
                      int S, int nh, float scale_log2, cudaStream_t stream) {
   dim3 grid((S + kQT - 1) / kQT, nh, B);
-  attention_kernel<T, HD><<<grid, kQT, 0, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), in_stride, key_bias, static_cast<T*>(out), S,
+  attention_kernel<HD><<<grid, kQT, 0, stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), in_stride, key_bias, static_cast<float*>(out), S,
       nh, scale_log2);
   return cudaGetLastError();
 }
@@ -424,10 +419,10 @@ int archi_encoder_attention(int dtype, const void* q, const void* k,
 #define ARCHI_ATTN_ARGS q, k, v, in_stride, key_bias, out, B, S, nh, scale_log2
   if (dtype == 0) {
     switch (hd) {
-      case 8: return launch_t<float, 8>(ARCHI_ATTN_ARGS, st);
-      case 16: return launch_t<float, 16>(ARCHI_ATTN_ARGS, st);
-      case 32: return launch_t<float, 32>(ARCHI_ATTN_ARGS, st);
-      case 64: return launch_t<float, 64>(ARCHI_ATTN_ARGS, st);
+      case 8: return launch_t<8>(ARCHI_ATTN_ARGS, st);
+      case 16: return launch_t<16>(ARCHI_ATTN_ARGS, st);
+      case 32: return launch_t<32>(ARCHI_ATTN_ARGS, st);
+      case 64: return launch_t<64>(ARCHI_ATTN_ARGS, st);
     }
   } else if (dtype == 1) {
     switch (hd) {

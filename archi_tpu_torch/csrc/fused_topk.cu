@@ -28,7 +28,7 @@
 //     fastest grid axis, so the CTAs that read one split run together and
 //     share it through L2.  Each CTA streams its split in 128-row tiles and
 //     keeps a sorted k-list per query in shared memory.
-//     - bf16 / int8 (tc_topk_partial_kernel): QB (8, 32 or 64) queries sit
+//     - bf16 / int8 (tc_topk_partial_kernel): QB (8 or 32) queries sit
 //       in shared memory in the corpus type, rows padded by 16 bytes.  The
 //       tiles arrive 128 bytes of depth at a time through a ring of 6
 //       stages (3 where only that lets two CTAs share an SM) of
@@ -83,8 +83,6 @@ constexpr int kBK = 32;                     // depth of one shared-memory chunk
 constexpr int kEStride = kBK + 4;           // padded row stride (floats)
 constexpr int kMaxK = 128;
 constexpr float kNegInf = -1.0e30f;         // NEG_INF of the JAX package
-
-__device__ __forceinline__ float to_f32(float x) { return x; }
 
 // 16 consecutive elements at a 16-byte aligned address, as f32.
 __device__ __forceinline__ void load16(const float* src, float* dst) {
@@ -192,9 +190,9 @@ size_t partial_smem_bytes(int qb, int d, int k) {
          static_cast<size_t>(qb) * k * (sizeof(float) + sizeof(int));
 }
 
-template <typename T, int QB>
+template <int QB>
 __global__ void __launch_bounds__(kThreads)
-topk_partial_kernel(const T* __restrict__ q, const T* __restrict__ e,
+topk_partial_kernel(const float* __restrict__ q, const float* __restrict__ e,
                     const float* __restrict__ bias, int bias_stride, int B,
                     int D, int n_active, int k, int rows_per_split,
                     float scale, int vec, float* __restrict__ part_v,
@@ -215,7 +213,7 @@ topk_partial_kernel(const T* __restrict__ q, const T* __restrict__ e,
 
   for (int x = tid; x < QB * Dp; x += kThreads) {
     const int qi = x / Dp, d = x - qi * Dp;
-    qs[x] = (q0 + qi < B && d < D) ? to_f32(q[static_cast<size_t>(q0 + qi) * D + d]) : 0.f;
+    qs[x] = (q0 + qi < B && d < D) ? q[static_cast<size_t>(q0 + qi) * D + d] : 0.f;
   }
   for (int x = tid; x < QB * k; x += kThreads) { lv[x] = -INFINITY; li[x] = INT_MAX; }
   __syncthreads();
@@ -237,9 +235,9 @@ topk_partial_kernel(const T* __restrict__ q, const T* __restrict__ e,
     } else if (vec) {
       load16(e + static_cast<size_t>(row) * D + col, pre);
     } else {
-      const T* src = e + static_cast<size_t>(row) * D;
+      const float* src = e + static_cast<size_t>(row) * D;
 #pragma unroll
-      for (int c = 0; c < 16; ++c) pre[c] = (col + c < D) ? to_f32(src[col + c]) : 0.f;
+      for (int c = 0; c < 16; ++c) pre[c] = (col + c < D) ? src[col + c] : 0.f;
     }
   };
 
@@ -379,7 +377,6 @@ tc_topk_partial_kernel(const T* __restrict__ q, const T* __restrict__ e,
       }
     }
   };
-#pragma unroll
 #pragma unroll
   for (int s = 0; s < NS - 1; ++s) {
     if (s < nsteps) load_stage(s);
@@ -560,7 +557,7 @@ struct Route {
 
 template <int QB>
 Route f32_route(int D, int k) {
-  return {reinterpret_cast<const void*>(topk_partial_kernel<float, QB>), QB,
+  return {reinterpret_cast<const void*>(topk_partial_kernel<QB>), QB,
           partial_smem_bytes(QB, D, k)};
 }
 
@@ -588,16 +585,14 @@ Route tc_route(int D, int k, bool per_query, int sm_smem) {
 
 template <typename T>
 Route tc_route(int qb, int D, int k, bool per_query, int sm_smem) {
-  switch (qb) {
-    case 8: return tc_route<T, 8>(D, k, per_query, sm_smem);
-    case 32: return tc_route<T, 32>(D, k, per_query, sm_smem);
-  }
-  return tc_route<T, 64>(D, k, per_query, sm_smem);
+  return qb == 8 ? tc_route<T, 8>(D, k, per_query, sm_smem)
+                 : tc_route<T, 32>(D, k, per_query, sm_smem);
 }
 
 // dtype 0: f32 on the CUDA cores, 8 or 32 queries a CTA.  1 (bf16) and 2
-// (int8): tensor cores, 8, 32 or 64 queries a CTA, the largest the batch
-// can use whose shared memory fits.
+// (int8): tensor cores, 8 or 32 queries a CTA (32 unless the batch is 8 or
+// less, or D is too large for it).  64 queries a CTA read the corpus half as
+// often at B = 256 but let one CTA only on an SM, and measured 13% slower.
 cudaError_t pick_route(int dtype, int B, int D, int k, int per_query, Route* r) {
   if (dtype < 0 || dtype > 2) return cudaErrorInvalidValue;
   int dev = 0, cap = 0, sm_smem = 0;
@@ -611,7 +606,7 @@ cudaError_t pick_route(int dtype, int B, int D, int k, int per_query, Route* r) 
     *r = B <= 8 ? f32_route<8>(D, k) : f32_route<32>(D, k);
     if (r->smem > static_cast<size_t>(cap)) return cudaErrorInvalidValue;
   } else {
-    for (int qb = B <= 8 ? 8 : (B <= 32 ? 32 : 64);; qb = qb == 64 ? 32 : 8) {
+    for (int qb = B <= 8 ? 8 : 32;; qb = 8) {
       *r = dtype == 1 ? tc_route<__nv_bfloat16>(qb, D, k, per_query, sm_smem)
                       : tc_route<int8_t>(qb, D, k, per_query, sm_smem);
       if (r->smem <= static_cast<size_t>(cap)) break;

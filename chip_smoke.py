@@ -1000,6 +1000,11 @@ def main() -> int:
                   torch.float32, False, timed=True),
         topk_case("topk_b32_int8", 32, N_ROWS, N_ROWS, torch.int8, False,
                   timed=True),
+        topk_case("topk_b256_int8", 256, N_ROWS, N_ROWS, torch.int8, False,
+                  timed=True),
+        # wider rows, a ragged edge and k = 128 on the tensor-core route
+        topk_case("topk_b33_k128_d768_bf16", 33, 300_007, 299_000, bf16, True,
+                  k=128, d=768),
     ]
     attn = [
         # ingest (256 chunks in the 128 bucket) and queries (the 64 bucket,
@@ -1011,6 +1016,8 @@ def main() -> int:
                        timed=True),
         attention_case("attn_b256_s512_bf16", 256, 512, torch.bfloat16,
                        timed=True),
+        attention_case("attn_b64_s200_hd64_bf16", 64, 200, torch.bfloat16,
+                       nh=6, hd=64),
         attention_case("attn_b256_s128_f32", 256, 128, torch.float32,
                        timed=True),
         attention_case("attn_b256_s512_f32", 256, 512, torch.float32),

@@ -87,7 +87,7 @@ def test_fused_topk_matches_plain(dev, dtype, b, d, n_pad, n_active, k,
 ])
 def test_fused_topk_tensor_core_route(dev, dtype, b, d, k, per_query):
     """bf16 and int8 corpora take the tensor-core kernel (ragged n_active,
-    D not a multiple of the 128-byte stage, 8 / 32 / 64 queries a CTA):
+    D not a multiple of the 128-byte stage, 8 or 32 queries a CTA):
     bf16 within 1e-4 of the plain version, tie-aware; int8 identical."""
     from archi_tpu_torch.ops import ROUTE_LAUNCHES
     from archi_tpu_torch.ops.topk import _scores
@@ -106,6 +106,19 @@ def test_fused_topk_tensor_core_route(dev, dtype, b, d, k, per_query):
         return
     col = torch.arange(n_pad, device=dev)
     scores = torch.where(col < n_active, _scores(q, e) + bias, NEG_INF)
+    assert_topk_matches(vals, idx, ref_vals, scores, atol=1e-4)
+
+
+def test_fused_topk_tensor_core_wide_rows(dev):
+    """D = 4096 bf16: 32 queries no longer fit in shared memory beside the
+    ring, so the kernel takes blocks of 8."""
+    from archi_tpu_torch.ops.topk import _scores
+
+    q, e, bias = _case(dev, 40, 4096, 3000, 2900, torch.bfloat16, True, seed=4)
+    vals, idx = fused_topk(q, e, bias, 2900, k=20)
+    ref_vals, _ = plain_topk(q, e, bias, 2900, k=20)
+    col = torch.arange(3000, device=dev)
+    scores = torch.where(col < 2900, _scores(q, e) + bias, NEG_INF)
     assert_topk_matches(vals, idx, ref_vals, scores, atol=1e-4)
 
 
@@ -326,6 +339,30 @@ def test_attention_tensor_core_unaligned_views(dev):
     out = encoder_attention(*views, key_bias, sm_scale=0.25)
     want = encoder_attention(q, k, v, key_bias, sm_scale=0.25)
     assert torch.equal(out, want)
+
+
+def test_bf16_main_path_takes_the_tensor_core_routes(dev):
+    """A bf16 encoder call and a bf16 flat-index search launch only the
+    tensor-core kernels."""
+    from archi_tpu_torch.engine.flat_index import FlatIndex
+    from archi_tpu_torch.models.bert import BertConfig, BertEncoder, encode, init_params
+    from archi_tpu_torch.models.hf_loader import params_from_jax
+    from archi_tpu_torch.ops import ROUTE_LAUNCHES, reset_launches
+
+    cfg = BertConfig(vocab_size=300, hidden_size=64, num_layers=2, num_heads=2,
+                     intermediate_size=128, max_position_embeddings=128)
+    model = BertEncoder.from_state(cfg, params_from_jax(init_params(cfg, seed=3)),
+                                   device=dev, compute_dtype=torch.bfloat16)
+    ids = torch.from_numpy(np.random.default_rng(0).integers(0, 300, (4, 64)))
+    index = FlatIndex(64, dtype=torch.bfloat16, device=dev)
+    index.add(torch.randn(5000, 64), list(range(5000)))
+    reset_launches()
+    emb = encode(model, ids.to(dev), torch.ones(4, 64, dtype=torch.long, device=dev))
+    index.search_dispatch(emb.float(), k=5)
+    torch.cuda.synchronize()
+    assert ROUTE_LAUNCHES == {
+        "fused_topk:tensor_core": 1, "fused_topk:cuda_core": 0,
+        "encoder_attention:tensor_core": 2, "encoder_attention:cuda_core": 0}
 
 
 def test_encoder_on_card_matches_cpu(dev):
