@@ -571,7 +571,7 @@ Route tc_route(int D, int k, bool per_query) {
 
 // The deep ring, unless only the shallow one lets two CTAs share an SM: a
 // CTA of 8 warps waits at a barrier every stage, and a second CTA hides
-// that better than more stages do (H100 runs, PERF.md).  The depth is a
+// that better than more stages do (measured on an H100).  The depth is a
 // template argument: a depth known only at run time measured slower.
 template <typename T, int QB>
 Route tc_route(int D, int k, bool per_query, int sm_smem) {
@@ -592,7 +592,7 @@ Route tc_route(int qb, int D, int k, bool per_query, int sm_smem) {
 // dtype 0: f32 on the CUDA cores, 8 or 32 queries a CTA.  1 (bf16) and 2
 // (int8): tensor cores, 8 or 32 queries a CTA (32 unless the batch is 8 or
 // less, or D is too large for it).  64 queries a CTA read the corpus half as
-// often at B = 256 but let one CTA only on an SM, and measured 13% slower.
+// often at B = 256 but let one CTA only on an SM, and measured slower.
 cudaError_t pick_route(int dtype, int B, int D, int k, int per_query, Route* r) {
   if (dtype < 0 || dtype > 2) return cudaErrorInvalidValue;
   int dev = 0, cap = 0, sm_smem = 0;
