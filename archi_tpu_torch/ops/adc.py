@@ -16,6 +16,11 @@ an f32-exact gather would differ from them by up to 2e-2.
 takes ksub = 16 codes packed two to a byte, ``packed_t [m/2, S]`` u8 (low
 nibble = even subspace).  Both launch ``csrc/adc.cu`` on CUDA tensors and
 take the plain version on CPU tensors.  Codes must be below ksub.
+
+Each launch is planned here: the query tile (``query_tile``, the queries a
+CTA's shared table holds) and the columns a lane scores
+(``columns_per_lane``: 16, 8 or 4 on the vectorised route, 1 on the byte
+route), counted under ``ops.ROUTE_LAUNCHES["<name>:vector" | "<name>:byte"]``.
 """
 
 from __future__ import annotations
@@ -68,6 +73,50 @@ def plain_adc_scores_lut16(luts_mgk, packed_t):
     return plain_adc_scores(luts_mgk, unpack_nibbles(packed_t.t()).t())
 
 
+#: query tiles of the kernels (queries a CTA's shared table holds); G above
+#: the largest is tiled
+QUERY_TILES = (1, 2, 4, 8)
+#: columns a lane scores on the vectorised route (16-, 8- and 4-byte code
+#: loads); the byte route takes one column a lane
+VECTOR_COLUMNS = (16, 8, 4)
+#: f32 sums a thread keeps at most (query tile x columns)
+MAX_SUMS = 32
+#: the widest load is taken that still gives each SM this many busy warps
+#: (``scripts/torch_adc_ablation.py`` times each width: on an H100, 8-byte
+#: loads win at 360,448 columns, 4-byte at 131,072, 16-byte at 2^21)
+BUSY_WARPS_PER_SM = 8
+
+
+def query_tile(g: int) -> int:
+    """The kernel's query tile for G queries: the smallest that holds them,
+    8 for G > 8."""
+    return next(t for t in QUERY_TILES if t >= min(g, QUERY_TILES[-1]))
+
+
+def columns_per_lane(s: int, g: int, codes_ptr: int, sms: int) -> int:
+    """Columns a lane scores (the load width in bytes a code row): the
+    widest of ``VECTOR_COLUMNS`` that divides S and the codes' address and
+    still fills ``sms`` SMs with ``BUSY_WARPS_PER_SM`` warps of 32 lanes
+    (else the narrowest that divides them); 1, the byte route, when none
+    divides them."""
+    gt = query_tile(g)
+    fits = [c for c in VECTOR_COLUMNS
+            if s % c == 0 and codes_ptr % c == 0 and c * gt <= MAX_SUMS]
+    if not fits:
+        return 1
+    query_tiles = -(-g // gt)
+    for c in fits:
+        if -(-s // (32 * c)) * query_tiles >= BUSY_WARPS_PER_SM * sms:
+            return c
+    return fits[-1]
+
+
+def route(columns: int) -> str:
+    """``ops.ROUTE_LAUNCHES`` route of a launch: ``vector`` (16-, 8- or
+    4-byte code loads) or ``byte``."""
+    return "vector" if columns > 1 else "byte"
+
+
 _lib = None
 
 
@@ -77,9 +126,9 @@ def _kernel():
         lib = _build.load("adc")
         vp, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
         lib.archi_adc_scores.restype = i
-        lib.archi_adc_scores.argtypes = [vp, vp, vp, i, i, i, ll, vp]
+        lib.archi_adc_scores.argtypes = [vp, vp, vp, i, i, i, ll, i, i, vp]
         lib.archi_adc_scores_lut16.restype = i
-        lib.archi_adc_scores_lut16.argtypes = [vp, vp, vp, i, i, ll, vp]
+        lib.archi_adc_scores_lut16.argtypes = [vp, vp, vp, i, i, ll, i, i, vp]
         lib.archi_adc_error_string.restype = ctypes.c_char_p
         lib.archi_adc_error_string.argtypes = [i]
         _lib = lib
@@ -106,13 +155,28 @@ def _checked(name, luts_mgk, codes, code_rows):
     return luts, codes.contiguous(), m, g, ksub, codes.shape[1]
 
 
-def _launch(name, fn, args, lib, dev):
+_SMS: dict[int, int] = {}
+
+
+def _sms(dev) -> int:
+    idx = dev.index if dev.index is not None else torch.cuda.current_device()
+    if idx not in _SMS:
+        _SMS[idx] = torch.cuda.get_device_properties(idx).multi_processor_count
+    return _SMS[idx]
+
+
+def _launch(name, fn, args, g, codes, lib):
+    """Launch with the query tile and columns a lane planned for this input;
+    raises if the kernel is refused."""
+    dev = codes.device
+    cols = columns_per_lane(codes.shape[1], g, codes.data_ptr(), _sms(dev))
     with torch.cuda.device(dev):
-        rc = fn(*args, torch.cuda.current_stream(dev).cuda_stream)
+        rc = fn(*args, query_tile(g), cols,
+                torch.cuda.current_stream(dev).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"{name}: {lib.archi_adc_error_string(rc).decode()} "
                            f"(error {rc})")
-    count_launch(name)
+    count_launch(name, route(cols))
 
 
 def adc_scores(luts_mgk, codes_t):
@@ -136,7 +200,7 @@ def adc_scores(luts_mgk, codes_t):
     lib = _kernel()
     _launch("adc_scores", lib.archi_adc_scores,
             (luts.data_ptr(), codes.data_ptr(), out.data_ptr(), m, g, ksub, s),
-            lib, codes.device)
+            g, codes, lib)
     return out
 
 
@@ -162,5 +226,5 @@ def adc_scores_lut16(luts_mgk, packed_t):
     lib = _kernel()
     _launch("adc_scores_lut16", lib.archi_adc_scores_lut16,
             (luts.data_ptr(), codes.data_ptr(), out.data_ptr(), m, g, s),
-            lib, codes.device)
+            g, codes, lib)
     return out

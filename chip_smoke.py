@@ -34,7 +34,9 @@ Phases (each fails the run with a non-zero exit):
      4-bit ADC kernel and the host exact rerank, checked the same way.
 
 Phase 2 also holds both ADC kernels against their plain versions at the
-shapes of paths A and B.  The last two lines are a JSON object listing the kernels and
+shapes of paths A and B, and times them with the codes in L2, just
+rewritten (warm) and flushed from L2 (cold); phases 5 and 6 fail unless
+every ADC launch of their path took the vectorised route.  The last two lines are a JSON object listing the kernels and
 ``{"ok": true, "device": {...}}``.  Without CUDA, or without the rest of
 the repository beside it, the script exits non-zero and prints no result.
 """
@@ -106,10 +108,11 @@ def cuda_ms(fn, iters: int = 10, warmup: int = 2) -> float:
     return start.elapsed_time(end) / iters
 
 
-def graph_ms(fn, iters: int = 20) -> float:
+def graph_ms(fn, iters: int = 20, calls: int = 1) -> float:
     """Device time of one fn() in ms without the host's launch overhead: fn
-    captured once in a CUDA graph, replayed `iters` times between CUDA
-    events."""
+    captured `calls` times in a CUDA graph (several, where one call is
+    shorter than the host's replay of a graph), replayed `iters` times
+    between CUDA events."""
     import torch
 
     side = torch.cuda.Stream()
@@ -119,7 +122,8 @@ def graph_ms(fn, iters: int = 20) -> float:
     torch.cuda.current_stream().wait_stream(side)
     graph = torch.cuda.CUDAGraph()
     with torch.cuda.graph(graph, capture_error_mode="relaxed"):
-        fn()
+        for _ in range(calls):
+            fn()
     graph.replay()
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
@@ -129,7 +133,7 @@ def graph_ms(fn, iters: int = 20) -> float:
         graph.replay()
     end.record()
     end.synchronize()
-    return start.elapsed_time(end) / iters
+    return start.elapsed_time(end) / iters / calls
 
 
 def kernel_resources(ptxas_log: str) -> dict[str, str]:
@@ -325,7 +329,7 @@ def adc_case(name, m, g, s, packed, timed=False, ksub=256):
     import torch
     import torch.nn.functional as F
 
-    from archi_tpu_torch.ops import adc
+    from archi_tpu_torch.ops import ROUTE_LAUNCHES, adc
 
     dev = torch.device("cuda")
     g_ = torch.Generator(device="cuda").manual_seed(SEED + m + g + s)
@@ -338,21 +342,40 @@ def adc_case(name, m, g, s, packed, timed=False, ksub=256):
         kernel, plain = adc.adc_scores_lut16, adc.plain_adc_scores_lut16
     else:
         codes_in, kernel, plain = codes, adc.adc_scores, adc.plain_adc_scores
+    wrapper = "adc_scores_lut16" if packed else "adc_scores"
+    before = dict(ROUTE_LAUNCHES)
     out = kernel(luts, codes_in)
     ref = plain(luts, codes_in)
     torch.cuda.synchronize()
+    route = [k.split(":")[1] for k in ROUTE_LAUNCHES
+             if k.startswith(wrapper + ":") and ROUTE_LAUNCHES[k] > before[k]]
     err = float((out - ref).abs().max())
     tol = 1e-5   # both sum the bf16 table in subspace order (0 expected)
     check(out.shape == (g, s) and bool(torch.isfinite(out).all())
           and err <= tol, f"{name}: max_abs_err {err:.3g} (tol {tol})")
     res = {"case": name, "m": m, "G": g, "S": s, "ksub": ksub,
-           "packed": packed, "max_abs_err": err, "tol": tol}
-    log(f"  {name}: max_abs_err {err:.3g} (tol {tol}) ok")
+           "packed": packed, "route": route[0], "max_abs_err": err,
+           "tol": tol}
+    log(f"  {name}: max_abs_err {err:.3g} (tol {tol}) ok, {route[0]} route")
     if timed:
-        # device times from CUDA graphs (the wrapper's host work is tens of
-        # microseconds, as long as the kernel); the event-timed loop too
-        res["ms"] = graph_ms(lambda: kernel(luts, codes_in))
-        res["ms_events"] = cuda_ms(lambda: kernel(luts, codes_in))
+        # device times from CUDA graphs of ten calls (a call is shorter than
+        # the host's replay of a graph): replayed as they are (the codes stay
+        # in L2); warm, each call after a copy that rewrites the codes, as
+        # the candidate gather leaves them for the caller; cold, each call
+        # after a 64 MB write that flushes the 50 MB L2.  The copy's and the
+        # write's own graphs are timed and taken off.
+        def call():
+            return kernel(luts, codes_in)
+
+        src = codes_in.clone()
+        flush = torch.empty(64 << 20, dtype=torch.uint8, device=dev)
+        res["ms"] = graph_ms(call, calls=10)
+        res["ms_warm"] = (graph_ms(lambda: (codes_in.copy_(src), call()), calls=10)
+                          - graph_ms(lambda: codes_in.copy_(src), calls=10))
+        res["ms_cold"] = (graph_ms(lambda: (flush.zero_(), call()), calls=10)
+                          - graph_ms(lambda: flush.zero_(), calls=10))
+        del flush, src
+        res["ms_events"] = cuda_ms(call)
         res["plain_ms"] = graph_ms(lambda: plain(luts, codes_in), iters=3)
         table = adc.round_lut(luts).permute(0, 2, 1).reshape(
             m * ksub, g).contiguous()
@@ -366,7 +389,8 @@ def adc_case(name, m, g, s, packed, timed=False, ksub=256):
         nbytes = codes_in.numel() + luts.numel() * 4 + g * s * 4
         res["bound_ms"], res["bound_by"] = bound(nbytes, m * g * s,
                                                  "float32")
-        log(f"    ms {res['ms']:.4f} (events {res['ms_events']:.4f}) plain "
+        log(f"    ms {res['ms']:.4f} (warm {res['ms_warm']:.4f}, cold "
+            f"{res['ms_cold']:.4f}, events {res['ms_events']:.4f}) plain "
             f"{res['plain_ms']:.4f} library "
             f"{res['library_ms']:.4f} (err {lib_err:.3g}) bound "
             f"{res['bound_ms']:.4f} ({res['bound_by']})")
@@ -785,6 +809,9 @@ def path_a(results, emb, docs, vocab):
     for name in ("fused_topk", "encoder_attention"):
         check(routes[f"{name}:tensor_core"] == launches[name],
               f"path A: {name} launches off the tensor-core route {routes}")
+    # the candidate sets are whole blocks of 512 codes: vectorised loads
+    check(routes["adc_scores:vector"] == launches["adc_scores"],
+          f"path A: adc_scores launches off the vectorised route {routes}")
     results.setdefault("routes", {})["path_a"] = routes
     check(engine_topk.FUSED_FALLBACKS["count"] == 0, "top-k fell back")
 
@@ -884,7 +911,7 @@ def path_b(results, index_a, corpus):
 
     from archi_tpu_torch.engine.host_store import HostVectorStore, exact_rerank
     from archi_tpu_torch.engine.ivfpq_index import IVFPQIndex
-    from archi_tpu_torch.ops import LAUNCHES, reset_launches
+    from archi_tpu_torch.ops import LAUNCHES, ROUTE_LAUNCHES, reset_launches
 
     emb = index_a.emb
     n_blocks = PATH_ROWS // XL_BLOCK_ROWS
@@ -923,11 +950,14 @@ def path_b(results, index_a, corpus):
     cand_v, cand_r = search()
     vals, rows = exact_rerank(host, q_np, cand_v, cand_r, k=10)
     torch.cuda.synchronize()
-    launches = dict(LAUNCHES)
+    launches, routes = dict(LAUNCHES), dict(ROUTE_LAUNCHES)
     log(f"  XL snapshot built in {out['snapshot_build_s']:.1f} s "
-        f"({out['n_blocks']} blocks); launches {launches}")
+        f"({out['n_blocks']} blocks); launches {launches}, routes {routes}")
     check(launches["adc_scores_lut16"] > 0,
           "path B: adc_scores_lut16 never launched")
+    check(routes["adc_scores_lut16:vector"] == launches["adc_scores_lut16"],
+          f"path B: adc_scores_lut16 launches off the vectorised route {routes}")
+    results["routes"]["path_b"] = routes
 
     plain_v, plain_r = search("plain")
     check(same_rows(cand_v, cand_r, plain_v, plain_r),
@@ -1072,7 +1102,10 @@ def main() -> int:
                "bound_ms": headline["bound_ms"],
                "bound_by": headline["bound_by"],
                "library_ms": headline["library_ms"]}
-        # which kernel of the wrapper ran (main path and path A)
+        for key in ("ms_warm", "ms_cold"):    # the ADC kernels' L2 states
+            if key in headline:
+                out[key] = headline[key]
+        # which kernel of the wrapper ran (main path, paths A and B)
         by_route = {key.split(":")[1]: sum(r[key] for r in
                                            results["routes"].values())
                     for key in results["routes"]["main"]

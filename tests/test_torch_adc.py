@@ -95,3 +95,98 @@ def test_pack_unpack_round_trip_equals_jax(shape):
     # leading axes ride along, as in the JAX function
     three = packed.reshape(1, *packed.shape)
     np.testing.assert_array_equal(tadc.unpack_nibbles(three).numpy()[0], codes)
+
+
+# ---------------------------------------------------------------- launch plan
+@pytest.mark.parametrize("g,want", [(1, 1), (2, 2), (3, 4), (4, 4), (5, 8),
+                                    (8, 8), (9, 8), (256, 8)])
+def test_query_tile(g, want):
+    assert tadc.query_tile(g) == want
+
+
+@pytest.mark.parametrize("s,g,ptr,want", [
+    (360_448, 1, 0, 8),       # path A: 1408 warp tiles, 10.7 an SM
+    (131_072, 2, 0, 4),       # path B: 4 columns, the most warps
+    (1 << 24, 1, 0, 16),      # enough columns for 16-byte loads
+    (1 << 24, 4, 0, 8),       # query tile 4: at most 8 columns (32 sums)
+    (1 << 24, 256, 0, 4),     # query tile 8: at most 4 columns
+    (1 << 24, 1, 8, 8),       # an address aligned to 8 but not 16
+    (1 << 24, 1, 4, 4),
+    (1 << 24, 1, 2, 1),       # unaligned codes: the byte route
+    (1 << 24, 1, 1, 1),
+    (16, 2, 0, 4),            # few columns: the narrowest vector load
+    (15, 2, 0, 1),            # S the 4-byte loads do not divide
+    (17, 1, 0, 1),
+    (1, 1, 0, 1),
+    ((1 << 17) + 4, 2, 0, 4),
+    ((1 << 17) + 3, 2, 0, 1),
+])
+def test_columns_per_lane_and_route(s, g, ptr, want):
+    """The widest load that divides S and the codes' address and still
+    gives 132 SMs 8 busy warps each; the byte route when none divides."""
+    cols = tadc.columns_per_lane(s, g, ptr, 132)
+    assert cols == want
+    assert tadc.route(cols) == ("byte" if want == 1 else "vector")
+    assert s % cols == 0 and ptr % cols == 0
+    assert cols * tadc.query_tile(g) <= tadc.MAX_SUMS
+
+
+def _kernel_model(luts, codes, packed, run):
+    """The CUDA kernels' arithmetic in numpy: the table as they hold it in
+    shared memory ([j][c][g] bf16, the queries of a tile side by side, zero
+    past G, one 32-bit word a pair of queries), looked up a word at a time,
+    halves turned into f32 by shifts, summed in f32 in subspace order, runs
+    of ``run`` subspaces added to the scores of the runs before."""
+    m, g, ksub = luts.shape
+    gt = tadc.query_tile(g)
+    n_tiles = -(-g // gt)
+    bits = (tadc.round_lut(torch.from_numpy(luts)).numpy().view(np.uint32)
+            >> 16).astype(np.uint32)                      # [m, G, ksub]
+    bits = np.concatenate([bits, np.zeros((m, n_tiles * gt - g, ksub),
+                                          np.uint32)], axis=1)
+    if packed:
+        codes = np.stack([codes & 15, codes >> 4], axis=1).reshape(m, -1)
+    out = np.zeros((n_tiles * gt, codes.shape[1]), np.float32)
+    for t in range(n_tiles):
+        tab = bits[:, t * gt:(t + 1) * gt, :].transpose(0, 2, 1)   # [j][c][g]
+        if gt == 1:
+            words, halves = tab[..., 0] << 16, [lambda w: w]
+        else:
+            words = tab[..., 0::2] | (tab[..., 1::2] << 16)         # pairs
+            halves = [lambda w: w << 16, lambda w: w & 0xFFFF0000]
+        for j0 in range(0, m, run):
+            acc = out[t * gt:(t + 1) * gt].copy()
+            for j in range(j0, min(m, j0 + run)):
+                entry = words[j][codes[j]]                  # [S] or [S, gt/2]
+                for q in range(gt):
+                    w = entry if gt == 1 else entry[:, q // 2]
+                    acc[q] += halves[q % 2 if gt > 1 else 0](
+                        w.astype(np.uint32)).view(np.float32)
+            out[t * gt:(t + 1) * gt] = acc
+    return out[:g]
+
+
+@pytest.mark.parametrize("m,g,s,packed,run", [
+    (8, 1, 2048, False, 8), (16, 3, 2048, False, 5), (12, 9, 2048, False, 12),
+    (8, 2, 2048, True, 8), (16, 5, 2048, True, 4), (48, 2, 2048, True, 48)])
+def test_kernel_table_layout_matches_jax(m, g, s, packed, run):
+    """The kernels' shared-memory layout and lookup arithmetic, modelled in
+    numpy, give the JAX functions' scores (Pallas kernels interpreted and
+    ``adc_scores_xla``): pair words, zero-padded query tiles, nibble order
+    and subspace runs change no bit of the f32 sum."""
+    luts, codes = _case(31 * m + g, m, g, s, 16 if packed else 256)
+    want_x = np.asarray(jadc.adc_scores_xla(jnp.asarray(luts),
+                                            jnp.asarray(codes)))
+    if packed:
+        codes = np.asarray(jadc.pack_nibbles(codes.T)).T.copy()
+        want_k = np.asarray(jadc.adc_scores_lut16(
+            jnp.asarray(luts), jnp.asarray(codes), tile=2048, interpret=True))
+    else:
+        want_k = np.asarray(jadc.adc_scores(jnp.asarray(luts), jnp.asarray(codes),
+                                            tile=2048, interpret=True))
+    got = _kernel_model(luts, codes, packed, run)
+    np.testing.assert_allclose(got, want_k, rtol=0, atol=ATOL)
+    np.testing.assert_allclose(got, want_x, rtol=0, atol=ATOL)
+    plain = (tadc.plain_adc_scores_lut16 if packed else tadc.plain_adc_scores)(
+        torch.from_numpy(luts), torch.from_numpy(codes))
+    np.testing.assert_array_equal(got, plain.numpy())

@@ -360,9 +360,8 @@ def test_bf16_main_path_takes_the_tensor_core_routes(dev):
     emb = encode(model, ids.to(dev), torch.ones(4, 64, dtype=torch.long, device=dev))
     index.search_dispatch(emb.float(), k=5)
     torch.cuda.synchronize()
-    assert ROUTE_LAUNCHES == {
-        "fused_topk:tensor_core": 1, "fused_topk:cuda_core": 0,
-        "encoder_attention:tensor_core": 2, "encoder_attention:cuda_core": 0}
+    assert {k: v for k, v in ROUTE_LAUNCHES.items() if v} == {
+        "fused_topk:tensor_core": 1, "encoder_attention:tensor_core": 2}
 
 
 def test_encoder_on_card_matches_cpu(dev):
@@ -464,3 +463,87 @@ def test_adc_strided_inputs_and_empty_shapes(dev):
     assert adc_scores(luts, codes[:, :0]).shape == (3, 0)
     assert adc_scores(luts[:, :0], codes).shape == (0, 5000)
     assert LAUNCHES == before
+
+
+def _adc_launch(dev, m, g, s, ksub, packed, seed, offset=0):
+    """One ADC kernel launch against its plain version on a random input
+    (ksub 16 for packed codes); checks the launch counter and returns the
+    route the launch took.  offset: bytes between a 16-byte aligned buffer
+    and the codes."""
+    from archi_tpu_torch.ops import ROUTE_LAUNCHES, adc
+
+    luts, codes = _adc_case(dev, m, g, s, 16 if packed else ksub, seed)
+    if packed:
+        codes = adc.pack_nibbles(codes.t()).t().contiguous()
+    if offset:
+        buf = torch.empty(codes.numel() + offset, dtype=torch.uint8, device=dev)
+        codes = buf[offset:].view(codes.shape).copy_(codes)
+        assert codes.is_contiguous() and codes.data_ptr() % 16 == offset
+    name = "adc_scores_lut16" if packed else "adc_scores"
+    kernel, plain = ((adc.adc_scores_lut16, adc.plain_adc_scores_lut16) if packed
+                     else (adc.adc_scores, adc.plain_adc_scores))
+    before, routes = LAUNCHES[name], dict(ROUTE_LAUNCHES)
+    out = kernel(luts, codes)
+    torch.cuda.synchronize()
+    assert LAUNCHES[name] == before + 1
+    rose = {k: ROUTE_LAUNCHES[k] - routes[k] for k in ROUTE_LAUNCHES
+            if ROUTE_LAUNCHES[k] != routes[k]}
+    assert len(rose) == 1 and list(rose.values()) == [1], rose
+    (key,) = rose
+    assert key.split(":")[0] == name
+    assert out.shape == (g, s) and out.dtype == torch.float32
+    assert float((out - plain(luts, codes)).abs().max()) <= 1e-5
+    return key.split(":")[1]
+
+
+@pytest.mark.parametrize("packed", [False, True])
+@pytest.mark.parametrize("g", [1, 2, 3, 4, 5, 8, 9, 256])
+def test_adc_every_query_tile(dev, g, packed):
+    """G = 1, 2, 4, 8 fill a query tile; 3 and 5 pad one; 9 and 256 tile
+    G over blockIdx.y."""
+    assert _adc_launch(dev, 48, g, 8192, 256, packed, seed=g) == "vector"
+
+
+@pytest.mark.parametrize("packed", [False, True])
+@pytest.mark.parametrize("s,want", [(1, "byte"), (15, "byte"), (16, "vector"),
+                                    (17, "byte"), ((1 << 17) + 3, "byte"),
+                                    ((1 << 17) + 4, "vector")])
+def test_adc_row_lengths(dev, s, want, packed):
+    """A row length the 4-byte loads do not divide takes the byte route."""
+    assert _adc_launch(dev, 16, 2, s, 256, packed, seed=s) == want
+
+
+@pytest.mark.parametrize("packed", [False, True])
+@pytest.mark.parametrize("offset", [1, 2, 4, 8])
+def test_adc_unaligned_codes(dev, offset, packed):
+    """Codes at an odd address take the byte route; an address aligned to 4
+    or 8 bytes takes the loads it allows."""
+    want = "byte" if offset % 4 else "vector"
+    assert _adc_launch(dev, 48, 2, 4096, 256, packed, seed=offset,
+                       offset=offset) == want
+
+
+@pytest.mark.parametrize("g", [1, 2, 8])
+@pytest.mark.parametrize("ksub", [10, 16, 100, 256])
+def test_adc_scores_code_widths(dev, ksub, g):
+    """8-bit codes with tables of fewer than 256 entries (10: a table row
+    that is not whole float4s)."""
+    assert _adc_launch(dev, 48, g, 20_000, ksub, False, seed=ksub + g) == "vector"
+
+
+@pytest.mark.parametrize("m,g,packed", [(96, 256, False), (200, 8, False),
+                                        (96, 256, True), (512, 8, True)])
+def test_adc_subspace_runs(dev, m, g, packed):
+    """Tables above the shared-memory budget (8-bit m = 96 and 200 at query
+    tile 8) split into runs of subspaces that keep the sum's order; the
+    4-bit ones fit up to m = 512 in one run."""
+    assert _adc_launch(dev, m, g, 4100, 256, packed, seed=m + g) == "vector"
+
+
+@pytest.mark.parametrize("m,g,s,packed", [(48, 1, 64 * 11 * 512, False),
+                                          (48, 2, 1 << 17, True)])
+def test_adc_ann_path_shapes(dev, m, g, s, packed):
+    """Path A's 8-bit ADC (one query a group over 64 cells of up to 11
+    blocks of 512) and path B's 4-bit ADC (groups of 2 over 2 x 128 blocks)
+    at their exact shapes, on the vectorised route."""
+    assert _adc_launch(dev, m, g, s, 256, packed, seed=s) == "vector"
