@@ -34,14 +34,15 @@
 //  - One lookup a code for the whole tile: the shared table is [j][c][g]
 //    bf16, the GT queries of a code side by side (a 32-bit word a pair of
 //    queries), read as one 2-, 4-, 8- or 16-byte word.
-//  - Loads: a lane scores CPT in {16, 8, 4} consecutive columns with one
-//    16-, 8- or 4-byte load a code row; the wrapper picks the widest that
-//    still gives every SM 8 busy warps (8 bytes at the cell probe's shape,
-//    4 at the XL tier's).  Two batches of 8, 16 or 24 code rows sit in
-//    registers, one loading while the other is looked up; the loads are
-//    volatile with a memory clobber, so the compiler keeps them ahead of the
-//    lookups of the batch before instead of sinking them to their use, and
-//    whole batches run without a branch a row.
+//  - Loads: a lane scores CPT in {8, 4} consecutive columns with one 8- or
+//    4-byte load a code row; the wrapper picks the wider where it still
+//    gives every SM 8 busy warps (8 bytes at the cell probe's shape, 4 at
+//    the XL tier's; 16-byte loads lost at both).  Two batches of 16 or 24
+//    code rows sit in registers, one loading while the other is looked
+//    up; the loads are volatile with a memory clobber, so the compiler
+//    keeps them ahead of the lookups of the batch before instead of
+//    sinking them to their use, and whole batches run without a branch a
+//    row.
 //  - Prologue: each warp issues its first two batches of code loads, then
 //    the CTA loads the f32 table (up to eight float4 a thread at once),
 //    rounds it and stores it as 8 GT-byte vectors; code loads first measured
@@ -219,7 +220,7 @@ __device__ void fill_table_scalar(typename Entry<GT>::T* tab,
 template <int CPT>
 constexpr int kWords = CPT >= 4 ? CPT / 4 : 1;
 template <int CPT>
-constexpr int kRows = CPT == 16 ? 8 : CPT == 8 ? 16 : 24;
+constexpr int kRows = CPT == 8 ? 16 : 24;
 
 // Rows [r0, r0 + kRows) of the lane's columns [s, s + CPT); FULL: all of
 // them are below n_rows.  Read once: not kept in L1.  The "memory" clobber
@@ -233,11 +234,7 @@ __device__ __forceinline__ void load_rows(uint32_t (&w)[kRows<CPT>][kWords<CPT>]
   for (int u = 0; u < kRows<CPT>; ++u) {
     if (!FULL && r0 + u >= n_rows) break;
     const uint8_t* p = col + static_cast<long long>(r0 + u) * S;
-    if constexpr (CPT == 16) {
-      asm volatile("ld.global.nc.L1::no_allocate.v4.u32 {%0, %1, %2, %3}, [%4];"
-                   : "=r"(w[u][0]), "=r"(w[u][1]), "=r"(w[u][2]), "=r"(w[u][3])
-                   : "l"(p) : "memory");
-    } else if constexpr (CPT == 8) {
+    if constexpr (CPT == 8) {
       asm volatile("ld.global.nc.L1::no_allocate.v2.u32 {%0, %1}, [%2];"
                    : "=r"(w[u][0]), "=r"(w[u][1]) : "l"(p) : "memory");
     } else if constexpr (CPT == 4) {
@@ -427,10 +424,6 @@ template <bool PACKED, int GT>
 int launch_gt(const float* luts, const uint8_t* codes, float* out, int m, int G,
               int ksub, long long S, int cpt, cudaStream_t stream) {
   switch (cpt) {
-    case 16:
-      if constexpr (GT * 16 <= kMaxSums)
-        return launch_t<PACKED, GT, 16>(luts, codes, out, m, G, ksub, S, stream);
-      return cudaErrorInvalidValue;
     case 8:
       if constexpr (GT * 8 <= kMaxSums)
         return launch_t<PACKED, GT, 8>(luts, codes, out, m, G, ksub, S, stream);
@@ -473,7 +466,7 @@ extern "C" {
 
 // luts [m, G, ksub] f32 (16-byte aligned when ksub % 4 == 0),
 // codes_t [m, S] u8 -> out [G, S] f32.  gt: query tile (1, 2, 4, 8);
-// cpt: columns a lane (16, 8, 4: S % cpt == 0 and codes_t cpt-aligned; 1).
+// cpt: columns a lane (8, 4: S % cpt == 0 and codes_t cpt-aligned; 1).
 int archi_adc_scores(const float* luts, const uint8_t* codes_t, float* out, int m,
                      int G, int ksub, long long S, int gt, int cpt, void* stream) {
   return launch<false>(luts, codes_t, out, m, G, ksub, S, gt, cpt,

@@ -6,7 +6,7 @@ run can show that its main path went through the kernels.  A wrapper with
 more than one kernel (one per input type) also counts each launch under
 ``ROUTE_LAUNCHES["<wrapper>:<route>"]``: ``tensor_core`` for the bf16 and
 int8 kernels on ``mma.sync``, ``cuda_core`` for the f32 kernels; for the ADC
-kernels ``vector`` (16-, 8- or 4-byte code loads) or ``byte`` (one code
+kernels ``vector`` (8- or 4-byte code loads) or ``byte`` (one code
 byte a load, for a row length or codes address the vector loads cannot
 take).
 """

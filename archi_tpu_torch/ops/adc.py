@@ -19,13 +19,14 @@ take the plain version on CPU tensors.  Codes must be below ksub.
 
 Each launch is planned here: the query tile (``query_tile``, the queries a
 CTA's shared table holds) and the columns a lane scores
-(``columns_per_lane``: 16, 8 or 4 on the vectorised route, 1 on the byte
+(``columns_per_lane``: 8 or 4 on the vectorised route, 1 on the byte
 route), counted under ``ops.ROUTE_LAUNCHES["<name>:vector" | "<name>:byte"]``.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
@@ -76,14 +77,14 @@ def plain_adc_scores_lut16(luts_mgk, packed_t):
 #: query tiles of the kernels (queries a CTA's shared table holds); G above
 #: the largest is tiled
 QUERY_TILES = (1, 2, 4, 8)
-#: columns a lane scores on the vectorised route (16-, 8- and 4-byte code
-#: loads); the byte route takes one column a lane
-VECTOR_COLUMNS = (16, 8, 4)
+#: columns a lane scores on the vectorised route (8- and 4-byte code loads);
+#: the byte route takes one column a lane
+VECTOR_COLUMNS = (8, 4)
 #: f32 sums a thread keeps at most (query tile x columns)
 MAX_SUMS = 32
-#: the widest load is taken that still gives each SM this many busy warps
-#: (``scripts/torch_adc_ablation.py`` times each width: on an H100, 8-byte
-#: loads win at 360,448 columns, 4-byte at 131,072, 16-byte at 2^21)
+#: the wider load is taken where it still gives each SM this many busy
+#: warps (``scripts/torch_adc_ablation.py`` times each width: on an H100,
+#: 8-byte loads win at 360,448 columns, 4-byte at 131,072)
 BUSY_WARPS_PER_SM = 8
 
 
@@ -112,8 +113,8 @@ def columns_per_lane(s: int, g: int, codes_ptr: int, sms: int) -> int:
 
 
 def route(columns: int) -> str:
-    """``ops.ROUTE_LAUNCHES`` route of a launch: ``vector`` (16-, 8- or
-    4-byte code loads) or ``byte``."""
+    """``ops.ROUTE_LAUNCHES`` route of a launch: ``vector`` (8- or 4-byte
+    code loads) or ``byte``."""
     return "vector" if columns > 1 else "byte"
 
 
@@ -155,21 +156,19 @@ def _checked(name, luts_mgk, codes, code_rows):
     return luts, codes.contiguous(), m, g, ksub, codes.shape[1]
 
 
-_SMS: dict[int, int] = {}
-
-
-def _sms(dev) -> int:
-    idx = dev.index if dev.index is not None else torch.cuda.current_device()
-    if idx not in _SMS:
-        _SMS[idx] = torch.cuda.get_device_properties(idx).multi_processor_count
-    return _SMS[idx]
+@functools.cache
+def _sm_count(index: int) -> int:
+    """SMs of CUDA device ``index``, for the launch plan (cached: the
+    property query costs host time, and the ANN paths are host-bound)."""
+    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 def _launch(name, fn, args, g, codes, lib):
     """Launch with the query tile and columns a lane planned for this input;
     raises if the kernel is refused."""
     dev = codes.device
-    cols = columns_per_lane(codes.shape[1], g, codes.data_ptr(), _sms(dev))
+    cols = columns_per_lane(codes.shape[1], g, codes.data_ptr(),
+                            _sm_count(dev.index))
     with torch.cuda.device(dev):
         rc = fn(*args, query_tile(g), cols,
                 torch.cuda.current_stream(dev).cuda_stream)

@@ -16,8 +16,8 @@ same way, unchanged, as the variant ``baseline``.
 
 Variants:
   full          the kernel as committed, with the columns a lane that the
-                wrapper plans, and again with each width forced (16, 8 and
-                4 columns, the 16-, 8- and 4-byte loads);
+                wrapper plans, and again with each width forced (8 and 4
+                columns, the 8- and 4-byte loads);
   no_lookups    the codes summed as numbers instead of looked up: the code
                 loads, the table prologue and the stores;
   no_prologue   the table left unconverted in shared memory (lookups of
@@ -26,9 +26,8 @@ Variants:
 Each is timed warm (each call after a copy that rewrites the codes, as the
 candidate gather leaves them) and cold (each call after a 64 MB write that
 flushes the 50 MB L2), from CUDA graphs of ten such pairs with the copy's or
-the write's own graph taken off.  The full variant also times path A's
-shape at 2^21 columns, where the wrapper picks 16-byte loads.  Needs a CUDA card; run from the root of the
-repository.
+the write's own graph taken off, by ``chip_smoke.graph_ms``.  Needs a
+CUDA card; run from the root of the repository.
 """
 
 from __future__ import annotations
@@ -62,29 +61,15 @@ VARIANTS = {
 }
 
 _TIMER = r"""
-import json, sys, torch
+import importlib.util, json, sys, torch
 from archi_tpu_torch.ops import adc
-def graph_ms(fn, iters=20, calls=10):
-    # `calls` calls a graph, so that the card, not the host's replay, sets
-    # the pace of calls shorter than a replay
-    side = torch.cuda.Stream()
-    side.wait_stream(torch.cuda.current_stream())
-    with torch.cuda.stream(side):
-        fn()
-    torch.cuda.current_stream().wait_stream(side)
-    graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph, capture_error_mode="relaxed"):
-        for _ in range(calls):
-            fn()
-    graph.replay()
-    torch.cuda.synchronize()
-    a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    a.record()
-    for _ in range(iters):
-        graph.replay()
-    b.record()
-    b.synchronize()
-    return a.elapsed_time(b) / iters / calls
+# the timer of this repository's chip_smoke.py, whichever tree is timed
+spec = importlib.util.spec_from_file_location("chip_smoke", sys.argv[2])
+smoke = importlib.util.module_from_spec(spec)
+spec.loader.exec_module(smoke)
+def graph_ms(fn):
+    # ten calls a graph: the card, not the host's replay, sets the pace
+    return smoke.graph_ms(fn, calls=10)
 flush = torch.empty(64 << 20, dtype=torch.uint8, device="cuda")
 g = torch.Generator(device="cuda").manual_seed(0)
 cases = {"adc8_g1_m48_s360448": (48, 1, 360448, False),
@@ -92,9 +77,6 @@ cases = {"adc8_g1_m48_s360448": (48, 1, 360448, False),
 variant = sys.argv[1]
 # a tree without the launch plan (the first port's kernels) times as it is
 plan = getattr(adc, "columns_per_lane", None)
-if variant == "full" and plan:
-    # 16-byte loads have the warps they need from 540,672 columns (G = 1)
-    cases["adc8_g1_m48_s2097152"] = (48, 1, 1 << 21, False)
 out = {"variant": variant}
 for name, (m, gq, s, packed) in cases.items():
     ksub = 16 if packed else 256
@@ -104,13 +86,13 @@ for name, (m, gq, s, packed) in cases.items():
     codes = src.clone()
     kernel = adc.adc_scores_lut16 if packed else adc.adc_scores
     # the planned width, then each width forced (full variant)
-    widths = [None] + ([16, 8, 4] if variant == "full" and plan else [])
+    widths = [None] + ([8, 4] if variant == "full" and plan else [])
     for cols in widths:
         key = name + ("" if cols is None else f"_cols{cols}")
         if plan:
             adc.columns_per_lane = plan if cols is None else (lambda *a, c=cols: c)
-            out[key + "_cols"] = cols or plan(s, gq, codes.data_ptr(),
-                                              adc._sms(codes.device))
+            sms = torch.cuda.get_device_properties(0).multi_processor_count
+            out[key + "_cols"] = cols or plan(s, gq, codes.data_ptr(), sms)
         call = lambda: kernel(luts, codes)
         out[key + "_warm_ms"] = (graph_ms(lambda: (codes.copy_(src), call()))
                                  - graph_ms(lambda: codes.copy_(src)))
@@ -158,8 +140,9 @@ def main() -> int:
                 print(f"{name}: build failed\n{log}", file=sys.stderr)
                 return proc.returncode
         for name, cwd in dirs.items():
-            res = subprocess.run([sys.executable, "-c", _TIMER, name], cwd=cwd,
-                                 capture_output=True, text=True)
+            res = subprocess.run([sys.executable, "-c", _TIMER, name,
+                                  os.path.join(ROOT, "chip_smoke.py")],
+                                 cwd=cwd, capture_output=True, text=True)
             if res.returncode != 0:
                 print(res.stdout + res.stderr, file=sys.stderr)
                 return res.returncode

@@ -107,11 +107,11 @@ def test_query_tile(g, want):
 @pytest.mark.parametrize("s,g,ptr,want", [
     (360_448, 1, 0, 8),       # path A: 1408 warp tiles, 10.7 an SM
     (131_072, 2, 0, 4),       # path B: 4 columns, the most warps
-    (1 << 24, 1, 0, 16),      # enough columns for 16-byte loads
+    (1 << 24, 1, 0, 8),       # many columns: the widest load
     (1 << 24, 4, 0, 8),       # query tile 4: at most 8 columns (32 sums)
     (1 << 24, 256, 0, 4),     # query tile 8: at most 4 columns
-    (1 << 24, 1, 8, 8),       # an address aligned to 8 but not 16
-    (1 << 24, 1, 4, 4),
+    (1 << 24, 1, 8, 8),       # an address aligned to 8
+    (1 << 24, 1, 4, 4),       # aligned to 4 but not 8
     (1 << 24, 1, 2, 1),       # unaligned codes: the byte route
     (1 << 24, 1, 1, 1),
     (16, 2, 0, 4),            # few columns: the narrowest vector load
@@ -132,7 +132,7 @@ def test_columns_per_lane_and_route(s, g, ptr, want):
 
 
 def _kernel_model(luts, codes, packed, run):
-    """The CUDA kernels' arithmetic in numpy: the table as they hold it in
+    """The design of ``csrc/adc.cu`` in numpy: the table as it holds it in
     shared memory ([j][c][g] bf16, the queries of a tile side by side, zero
     past G, one 32-bit word a pair of queries), looked up a word at a time,
     halves turned into f32 by shifts, summed in f32 in subspace order, runs
@@ -170,10 +170,12 @@ def _kernel_model(luts, codes, packed, run):
     (8, 1, 2048, False, 8), (16, 3, 2048, False, 5), (12, 9, 2048, False, 12),
     (8, 2, 2048, True, 8), (16, 5, 2048, True, 4), (48, 2, 2048, True, 48)])
 def test_kernel_table_layout_matches_jax(m, g, s, packed, run):
-    """The kernels' shared-memory layout and lookup arithmetic, modelled in
+    """A check of the design, not of the kernel: the shared-memory layout
+    and lookup arithmetic that ``csrc/adc.cu`` implements, modelled in
     numpy, give the JAX functions' scores (Pallas kernels interpreted and
     ``adc_scores_xla``): pair words, zero-padded query tiles, nibble order
-    and subspace runs change no bit of the f32 sum."""
+    and subspace runs change no bit of the f32 sum.  The kernel itself is
+    held against the plain versions on the card (``test_torch_cuda.py``)."""
     luts, codes = _case(31 * m + g, m, g, s, 16 if packed else 256)
     want_x = np.asarray(jadc.adc_scores_xla(jnp.asarray(luts),
                                             jnp.asarray(codes)))

@@ -505,6 +505,20 @@ def test_adc_every_query_tile(dev, g, packed):
 
 
 @pytest.mark.parametrize("packed", [False, True])
+@pytest.mark.parametrize("s", [1 << 20, (1 << 19) + 8])
+@pytest.mark.parametrize("g", [1, 2, 3, 4])
+def test_adc_eight_column_loads(dev, g, s, packed):
+    """Rows long enough for 8-byte loads at query tiles 1, 2 and 4, as
+    ``adc_topk``'s 2^20-column tiles give them at a batch of 4 or fewer;
+    at 2^19 + 8 columns the last warp tile has one lane."""
+    from archi_tpu_torch.ops import adc
+
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    assert adc.columns_per_lane(s, g, 0, sms) == 8
+    assert _adc_launch(dev, 48, g, s, 256, packed, seed=g + s) == "vector"
+
+
+@pytest.mark.parametrize("packed", [False, True])
 @pytest.mark.parametrize("s,want", [(1, "byte"), (15, "byte"), (16, "vector"),
                                     (17, "byte"), ((1 << 17) + 3, "byte"),
                                     ((1 << 17) + 4, "vector")])
