@@ -116,6 +116,38 @@ class FlatIndex:
         return self.n_rows - self._n_dead
 
     # ----------------------------------------------------------------- write
+    def _grow_to(self, n: int) -> None:
+        """Grow the capacity to hold ``n`` rows (new zero-padded buffers,
+        swapped in under ``_buf_lock``)."""
+        new_cap = _round_capacity(n, self.tile_n)
+        if new_cap <= self.capacity:
+            return
+        new_emb = torch.zeros((new_cap, self.dim), dtype=self.dtype,
+                              device=self.device)
+        new_alive = torch.zeros((new_cap,), dtype=torch.float32,
+                                device=self.device)
+        with self._buf_lock:
+            new_emb[:self.capacity] = self.emb
+            new_alive[:self.capacity] = self.alive
+            self.emb, self.alive, self.capacity = new_emb, new_alive, new_cap
+
+    def _write_block(self, block: torch.Tensor, alive_block: torch.Tensor,
+                     offset: int, n_rows: int) -> None:
+        """Write raw stored rows (already in the index's dtype) and their
+        liveness at ``offset`` into NEW buffers and swap them in together
+        with ``n_rows`` under ``_buf_lock``: a concurrent search sees the
+        old (emb, alive, n_rows) or the new one, never a mix.  The block
+        must fit the current capacity (``_grow_to`` first)."""
+        end = offset + block.shape[0]
+        if end > self.capacity:
+            raise ValueError(f"block rows [{offset}, {end}) exceed the "
+                             f"capacity {self.capacity}")
+        with self._buf_lock:
+            new_emb, new_alive = self.emb.clone(), self.alive.clone()
+            new_emb[offset:end] = block.to(self.device, self.dtype)
+            new_alive[offset:end] = alive_block.to(self.device, torch.float32)
+            self.emb, self.alive, self.n_rows = new_emb, new_alive, n_rows
+
     def add(self, embeddings, ids: Sequence[Any]) -> list[int]:
         """Append embeddings ([n, D] numpy or tensor); returns assigned
         physical rows."""
@@ -251,8 +283,11 @@ class FlatIndex:
 
     # ------------------------------------------------------------- serialize
     def save(self, path: str) -> None:
+        """The JAX package's npz layout (f32 rows, alive, meta), written
+        uncompressed: compressing embedding rows saves little space and
+        costs minutes at millions of rows.  ``np.load`` reads either."""
         os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
-        np.savez_compressed(
+        np.savez(
             path,
             emb=self._rows_f32(self.n_rows).cpu().numpy(),
             alive=self.alive[: self.n_rows].cpu().numpy(),

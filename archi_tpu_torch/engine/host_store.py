@@ -6,6 +6,12 @@ scale the card holds only codes; the full vectors live where capacity is
 cheap — host RAM or disk via ``numpy.memmap``.  Searches run on the device
 over codes; the host tier only gathers the final top-C candidates (C ~ tens)
 and re-scores them exactly — O(C·D) per query, no scan.
+
+numpy has no bfloat16 (the JAX package stores its XL plane through
+``ml_dtypes``): ``dtype=BF16`` keeps the raw bf16 bit patterns in a
+``uint16`` buffer, rounded to nearest even as ``ml_dtypes`` rounds, and
+every read upcasts them by ``bits << 16``.  A plane file written by either
+package therefore reads back bit for bit in the other.
 """
 
 from __future__ import annotations
@@ -15,20 +21,42 @@ import os
 
 import numpy as np
 
+#: ``HostVectorStore`` dtype of a bf16 plane held as raw bits
+BF16 = "bfloat16"
+
+
+def f32_to_bf16_bits(x) -> np.ndarray:
+    """f32 → bf16 bit patterns (uint16), rounded to nearest even; NaN stays a
+    quiet NaN of the same sign, overflow rounds to inf (``ml_dtypes``)."""
+    u = np.ascontiguousarray(x, np.float32).view(np.uint32)
+    bits = ((u + (0x7FFF + ((u >> 16) & 1))) >> 16).astype(np.uint16)
+    nan = np.isnan(np.asarray(x, np.float32))
+    if nan.any():
+        bits[nan] = ((u[nan] >> 16) & 0x8000) | 0x7FC0
+    return bits
+
+
+def bf16_bits_to_f32(bits) -> np.ndarray:
+    """bf16 bit patterns (uint16) → f32, exactly (``bits << 16``)."""
+    return (np.asarray(bits, np.uint16).astype(np.uint32) << 16).view(
+        np.float32)
+
 
 class HostVectorStore:
     """Append-only [N, D] f16 row store, RAM- or disk-backed.
 
     path=None → in-RAM ndarray (tests, small corpora).  With a path, rows
     live in a memmap that survives restarts; ``meta.json`` tracks the row
-    count for reopening.
+    count for reopening.  ``dtype=BF16`` stores bf16 bit patterns (``dtype``
+    is then ``uint16``, the buffer's type, and ``bf16`` is True).
     """
 
     def __init__(self, dim: int, *, path: str | None = None,
                  capacity: int = 1 << 15, dtype=np.float16):
         self.dim = int(dim)
         self.path = path
-        self.dtype = np.dtype(dtype)
+        self.bf16 = isinstance(dtype, str) and dtype == BF16
+        self.dtype = np.dtype(np.uint16 if self.bf16 else dtype)
         self._n = 0
         self._cap = max(int(capacity), 1024)
         if path is None:
@@ -88,7 +116,9 @@ class HostVectorStore:
         x = np.asarray(x)
         n_new = x.shape[0]
         self._grow_to(self._n + n_new)
-        if x.dtype == self.dtype:
+        if self.bf16:
+            self._buf[self._n: self._n + n_new] = f32_to_bf16_bits(x)
+        elif x.dtype == self.dtype:
             # same-dtype fast path: straight memcpy into the store. The
             # f32 round-trip below allocates 2x the block in fresh pages,
             # whose first-touch faults dominate a bulk fill.
@@ -105,9 +135,15 @@ class HostVectorStore:
         """Gather rows (negative/dead ids → zero vectors) → [len, D] f32."""
         rows = np.asarray(rows, np.int64)
         safe = np.clip(rows, 0, max(self._n - 1, 0))
-        out = np.asarray(self._buf[safe], np.float32)
+        out = self.to_f32(self._buf[safe])
         out[rows < 0] = 0.0
         return out
+
+    def to_f32(self, raw) -> np.ndarray:
+        """Stored rows (a slice or gather of the buffer) → f32."""
+        if self.bf16:
+            return bf16_bits_to_f32(raw)
+        return np.asarray(raw, np.float32)
 
     def flush(self) -> None:
         if self.path is not None:

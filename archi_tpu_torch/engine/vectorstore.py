@@ -9,7 +9,9 @@ Hybrid search scores every chunk ``semantic*w_sem + bm25*w_b`` and takes
 the global top-k in ONE fused scan, with the BM25 dense vector as the
 kernel's additive row bias; when BM25 matches nothing the search falls back
 to semantic scores.  Metadata filtering is a cached per-(key, value) row
-bitmask multiplied into the alive mask.
+bitmask multiplied into the alive mask.  ``enable_micro_batching`` routes
+concurrent public searches through the scheduler of ``engine/batcher.py``;
+the ``_*_impl`` methods are the direct paths its workers run.
 """
 
 from __future__ import annotations
@@ -24,6 +26,8 @@ from typing import Iterable, Optional, Sequence
 import numpy as np
 import torch
 
+from archi_tpu_torch.engine.batcher import (hybrid_batcher, hybrid_signature,
+                                            semantic_signature)
 from archi_tpu_torch.engine.bm25 import BM25Index
 from archi_tpu_torch.engine.flat_index import FlatIndex
 from archi_tpu_torch.engine.topk import alive_to_bias, next_pow2, pad_bias_rows
@@ -66,6 +70,8 @@ class TorchVectorStore:
         self._filter_masks: dict[tuple, np.ndarray] = {}
         self._id_counter = itertools.count()
         self._lock = threading.RLock()
+        # micro-batching scheduler (enable_micro_batching), None = direct
+        self._batcher = None
 
     # ------------------------------------------------------------------ write
     def add_texts(
@@ -186,6 +192,17 @@ class TorchVectorStore:
     def similarity_search_with_score(
         self, query: str, k: int = 4, **kw
     ) -> list[tuple[Document, float]]:
+        batcher = self._batcher
+        if batcher is not None and len(self.index) > 0 \
+                and set(kw) <= {"filter", "enabled_ids"}:
+            return batcher.submit(query, semantic_signature(
+                k, kw.get("filter"), kw.get("enabled_ids")))
+        return self._similarity_search_impl(query, k, **kw)
+
+    def _similarity_search_impl(self, query: str, k: int = 4, **kw):
+        """Direct (unbatched) semantic search — the only form safe to call
+        from INSIDE a batcher worker (the public method would re-enter the
+        scheduler and deadlock at workers=1)."""
         emb = self._embedding_function.embed_query(query)
         return self.similarity_search_by_vector_with_score(emb, k, **kw)
 
@@ -232,12 +249,17 @@ class TorchVectorStore:
     def enable_micro_batching(self, *, max_batch: int = 32,
                               max_wait_ms: float = 4.0,
                               workers: int = 2) -> None:
-        """Not ported yet: the micro-batching scheduler
-        (``archi_tpu/engine/batcher.py``) comes with the service-wiring
-        slice of the port."""
-        raise NotImplementedError(
-            "micro-batching is not ported yet; it arrives with the port's "
-            "service-wiring slice (engine/batcher.py)")
+        """Route concurrent ``hybrid_search`` and
+        ``similarity_search_with_score`` calls through the micro-batching
+        scheduler (``engine/batcher.py``): requests arriving within
+        ``max_wait_ms`` of each other with compatible parameters run as ONE
+        fused device pass.  Config: ``data_manager.serving.micro_batch``."""
+        old = self._batcher
+        if old is not None:
+            old.close()   # don't leak the previous scheduler's workers
+        self._batcher = hybrid_batcher(
+            self, max_batch=max_batch, max_wait_s=max_wait_ms / 1e3,
+            workers=workers)
 
     def hybrid_search(
         self,
@@ -249,7 +271,29 @@ class TorchVectorStore:
         filter: dict | None = None,
         enabled_ids: Optional[set] = None,
     ) -> list[tuple[Document, float]]:
-        """Fused semantic+BM25 ranking."""
+        """Fused semantic+BM25 ranking.  With micro-batching enabled,
+        concurrent calls coalesce into ``hybrid_search_batch`` (identical
+        results, one device pass)."""
+        batcher = self._batcher
+        if batcher is not None and semantic_weight > 0.0 \
+                and len(self.index) > 0:
+            return batcher.submit(query, hybrid_signature(
+                k, semantic_weight, bm25_weight, filter, enabled_ids))
+        return self._hybrid_search_impl(
+            query, k, semantic_weight=semantic_weight,
+            bm25_weight=bm25_weight, filter=filter, enabled_ids=enabled_ids)
+
+    def _hybrid_search_impl(
+        self,
+        query: str,
+        k: int = 4,
+        *,
+        semantic_weight: float = 0.7,
+        bm25_weight: float = 0.3,
+        filter: dict | None = None,
+        enabled_ids: Optional[set] = None,
+    ) -> list[tuple[Document, float]]:
+        """Direct (unbatched) hybrid search; safe inside a batcher worker."""
         METRICS.inc("archi_engine_queries", labels={"kind": "hybrid"})
         if len(self.index) == 0:
             return []
@@ -271,8 +315,10 @@ class TorchVectorStore:
             return [(d, s * bm25_weight) for d, s in results]
         bm = self.bm25.scores(query, self.index.capacity)
         if float(bm.max()) <= 0.0:
-            # BM25 found nothing → pure semantic scores
-            return self.similarity_search_with_score(
+            # BM25 found nothing → pure semantic scores.  Direct impl: this
+            # may run inside a batcher worker (sequential fallback), where
+            # the public method would re-enter the queue.
+            return self._similarity_search_impl(
                 query, k, filter=filter, enabled_ids=enabled_ids)
         emb = np.asarray(self._embedding_function.embed_query(query), np.float32)
         fm = self._filter_mask(filter, enabled_ids)
@@ -312,8 +358,10 @@ class TorchVectorStore:
         if not getattr(self.index, "supports_batched_bias", False) \
                 or semantic_weight <= 0.0:
             # an index that takes no [B, N] bias, or the degenerate
-            # lexical-only path: one call per query (each counts its query)
-            return [self.hybrid_search(
+            # lexical-only path: one direct call per query (each counts its
+            # query; NOT hybrid_search, which would re-enter the batcher
+            # from its own worker)
+            return [self._hybrid_search_impl(
                 q, k, semantic_weight=semantic_weight,
                 bm25_weight=bm25_weight, filter=filter,
                 enabled_ids=enabled_ids) for q in queries]
@@ -361,12 +409,25 @@ class TorchVectorStore:
 
     def warmup(self, k: int = 5) -> None:
         """Run one hybrid and one semantic query so that the kernels are
-        built before the first user request."""
+        built before the first user request.  With micro-batching enabled,
+        also run every power-of-two batch bucket up to ``max_batch`` that
+        the scheduler can produce."""
         if len(self.index) == 0:
             return
         try:
-            self.hybrid_search("warmup probe query", k=k)
-            self.similarity_search_with_score("warmup probe query", k=k)
+            if self._batcher is not None:
+                mb = self._batcher.max_batch
+                sizes, b = [], 1
+                while b < mb:
+                    sizes.append(b)
+                    b *= 2
+                sizes.append(mb)
+                probes = [f"warmup probe query {i}" for i in range(mb)]
+                for sz in sizes:
+                    self.hybrid_search_batch(probes[:sz], k=k)
+                    self.similarity_search_batch(probes[:sz], k=k)
+            self._hybrid_search_impl("warmup probe query", k=k)
+            self._similarity_search_impl("warmup probe query", k=k)
         except Exception:
             # a failed warmup must not take the service down; the first
             # real query raises the same error to its caller

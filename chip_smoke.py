@@ -31,12 +31,26 @@ Phases (each fails the run with a non-zero exit):
      save/load round trip of the snapshot);
   6. path B, the XL tier's snapshot: ``IVFPQIndex.build_streaming`` over
      the same rows with packed 4-bit codes, block-budget probing through the
-     4-bit ADC kernel and the host exact rerank, checked the same way.
+     4-bit ADC kernel and the host exact rerank, checked the same way;
+  7. the service layer, through ``archi_tpu_torch.bin.bootstrap``'s
+     ``build_vectorstore``: (a) phase 3's encoder written as a local HF
+     snapshot and its store as ``engine_checkpoint``, restored with
+     micro-batching at the defaults and served to 64 concurrent clients
+     (512 hybrid requests, each held against the direct path), then the
+     top 50 hybrid candidates of 8 queries reranked by ``MaxSimReranker``
+     (against the same weights on the CPU); (b) the same checkpoint restored
+     as a hot-tail index, 1024 documents ingested into the tail and merged
+     while 64 clients query; (c) ``type: ivfpq_xl`` at the bootstrap's
+     defaults, 2^20 clustered rows, a snapshot, 4096 documents in the exact
+     tail, micro-batched hybrid and semantic queries, recall, exact scores
+     and a save/load round trip.
 
 Phase 2 also holds both ADC kernels against their plain versions at the
 shapes of paths A and B, and times them with the codes in L2, just
 rewritten (warm) and flushed from L2 (cold); phases 5 and 6 fail unless
-every ADC launch of their path took the vectorised route.  The last two lines are a JSON object listing the kernels and
+every ADC launch of their path took the vectorised route; phase 7 fails
+unless every launch of its parts took the tensor-core or the vectorised
+route.  The last two lines are a JSON object listing the kernels and
 ``{"ok": true, "device": {...}}``.  Without CUDA, or without the rest of
 the repository beside it, the script exits non-zero and prints no result.
 """
@@ -68,7 +82,19 @@ SEED = 0
 PATH_ROWS = 1 << 22
 PATH_DOCS = 1024
 XL_BLOCK_ROWS = 1 << 17
+# phase 7, the service layer
+SVC_CLIENTS = 64           # concurrent clients (7a, 7b, 7c)
+SVC_CALLS = 8              # store calls a client
+HOT_DOCS = 1024            # documents ingested into the hot tail (7b)
+XL_ROWS = 1 << 20          # clustered rows of the XL store (7c)
+XL_DOCS = 4096             # documents in its exact tail
+RERANK_QUERIES = 8
+RERANK_TOP = 50
+#: where the service phase runs: the card (the CPU only in a rehearsal of
+#: the phase at small sizes)
+DEV = "cuda"
 ROOT = os.path.dirname(os.path.abspath(__file__))
+SERVICE_TMP = os.path.join(ROOT, ".chip_tmp", "service")
 
 
 class SmokeFailure(RuntimeError):
@@ -445,10 +471,17 @@ def brute_force_hybrid(store, queries, k, w_sem=0.7, w_b=0.3):
     index = store.index
     cap = index.capacity
     bm = torch.stack([store.bm25.scores(q, cap) for q in queries])
-    embs = torch.from_numpy(store._embed_queries(queries)).cuda()
-    bias = alive_to_bias(index.alive)[None, :] + bm * (w_b / w_sem)
-    vals, rows = plain_topk(l2_normalize(embs), index.emb, bias,
-                            index.n_rows, k=k)
+    embs = torch.from_numpy(store._embed_queries(queries)).to(DEV)
+    if hasattr(index, "main"):
+        # hot tail: main's merged rows, then the tail, by global row
+        nm = index.n_merged
+        emb = torch.cat([index.main.emb[:nm], index.tail.emb])
+        n_rows = nm + index.tail.n_rows
+    else:
+        emb, n_rows = index.emb, index.n_rows
+    n = emb.shape[0]
+    bias = alive_to_bias(index.alive[:n])[None, :] + bm[:, :n] * (w_b / w_sem)
+    vals, rows = plain_topk(l2_normalize(embs), emb, bias, n_rows, k=k)
     bm_max = bm.max(dim=1).values.cpu().numpy()
     out = []
     for b in range(len(queries)):
@@ -664,8 +697,8 @@ class ClusteredRows:
     def __init__(self, n_rows: int, seed: int, d: int = 384):
         import torch
 
-        self.gen = torch.Generator(device="cuda").manual_seed(seed)
-        self.centers = torch.randn(n_rows // 64, d, device="cuda",
+        self.gen = torch.Generator(device=DEV).manual_seed(seed)
+        self.centers = torch.randn(n_rows // 64, d, device=DEV,
                                    generator=self.gen)
 
     def rows(self, n: int, clusters=None):
@@ -673,9 +706,9 @@ class ClusteredRows:
 
         if clusters is None:
             clusters = torch.randint(0, self.centers.shape[0], (n,),
-                                     device="cuda", generator=self.gen)
+                                     device=DEV, generator=self.gen)
         v = self.centers[clusters] + 0.3 * torch.randn(
-            n, self.centers.shape[1], device="cuda", generator=self.gen)
+            n, self.centers.shape[1], device=DEV, generator=self.gen)
         return torch.nn.functional.normalize(v, dim=1)
 
 
@@ -737,9 +770,9 @@ def path_a(results, emb, docs, vocab):
     import numpy as np
     import torch
 
+    from archi_tpu_torch.bin.bootstrap import build_index
     from archi_tpu_torch.engine import topk as engine_topk
     from archi_tpu_torch.engine.ann_index import AnnFlatIndex
-    from archi_tpu_torch.engine.flat_index import FlatIndex
     from archi_tpu_torch.engine.vectorstore import TorchVectorStore
     from archi_tpu_torch.ops import LAUNCHES, ROUTE_LAUNCHES, reset_launches
 
@@ -747,12 +780,14 @@ def path_a(results, emb, docs, vocab):
     docs = docs[:PATH_DOCS]
     fill_texts = synthetic_texts(rng, vocab, PATH_ROWS - PATH_DOCS, 3)
     corpus = ClusteredRows(PATH_ROWS, SEED + 6)
-    # archi_tpu/bin/bootstrap.py's `type: ivfpq` arguments
-    index = AnnFlatIndex(384, nlist=1024, nprobe=64, nprobe_blocks=None,
-                         cell_gate=None, block_rank_sub=8,
-                         min_snapshot_rows=1 << 15, snapshot_kind="ivfpq",
-                         pq_m=48, pq_refine_m=48, extract="auto", hier_t=64,
-                         async_refresh=True)
+    # the bootstrap's `type: ivfpq` arguments, spelled out
+    index = build_index(384, {
+        "type": "ivfpq", "nlist": 1024, "nprobe": 64, "nprobe_blocks": None,
+        "cell_gate": None, "block_rank_sub": 8, "min_snapshot_rows": 1 << 15,
+        "pq_m": 48, "pq_refine_m": 48, "extract": "auto", "hier_t": 64,
+        "async_refresh": True})
+    check(isinstance(index, AnnFlatIndex) and index.snapshot_kind == "ivfpq",
+          "build_index did not give an ivfpq AnnFlatIndex")
     store = TorchVectorStore(emb, index=index)
     out = {}
 
@@ -865,7 +900,7 @@ def path_a(results, emb, docs, vocab):
         f"and hybrid; filter and fresh tail hold")
 
     # ---- save/load round trip of the snapshot sidecar
-    tmp = os.path.join(ROOT, ".chip_tmp")
+    tmp = os.path.join(ROOT, ".chip_tmp", "path_a")
     os.makedirs(tmp, exist_ok=True)
     try:
         before = index.search(queries, k=10)
@@ -986,6 +1021,453 @@ def path_b(results, index_a, corpus):
     return launches
 
 
+# ------------------------------------------------------------------ phase 7
+def save_hf_snapshot(emb, directory: str) -> None:
+    """Write a ``TorchEmbedder`` as a local HF snapshot: ``config.json``,
+    ``vocab.txt`` and ``pytorch_model.bin`` under the names
+    ``hf_loader.params_from_state_dict`` reads (linear weights as the
+    encoder holds them, upcast to f32)."""
+    import torch
+
+    os.makedirs(directory, exist_ok=True)
+    c, m = emb.config, emb.model
+    with open(os.path.join(directory, "config.json"), "w") as f:
+        json.dump({"vocab_size": c.vocab_size, "hidden_size": c.hidden_size,
+                   "num_hidden_layers": c.num_layers,
+                   "num_attention_heads": c.num_heads,
+                   "intermediate_size": c.intermediate_size,
+                   "max_position_embeddings": c.max_position_embeddings,
+                   "type_vocab_size": c.type_vocab_size,
+                   "layer_norm_eps": c.layer_norm_eps}, f)
+    emb.tokenizer.save_vocab(os.path.join(directory, "vocab.txt"))
+    sd = {"embeddings.word_embeddings.weight": m.word.weight,
+          "embeddings.position_embeddings.weight": m.position.weight,
+          "embeddings.token_type_embeddings.weight": m.token_type.weight,
+          "embeddings.LayerNorm.weight": m.emb_ln.weight,
+          "embeddings.LayerNorm.bias": m.emb_ln.bias}
+    h = c.hidden_size
+    for i, layer in enumerate(m.layers):
+        p = f"encoder.layer.{i}."
+        for j, name in enumerate(("query", "key", "value")):
+            sd[p + f"attention.self.{name}.weight"] = \
+                layer.qkv.weight[j * h:(j + 1) * h]
+            sd[p + f"attention.self.{name}.bias"] = \
+                layer.qkv.bias[j * h:(j + 1) * h]
+        for hf, mod in (("attention.output.dense", layer.o),
+                        ("attention.output.LayerNorm", layer.attn_ln),
+                        ("intermediate.dense", layer.ffn_i),
+                        ("output.dense", layer.ffn_o),
+                        ("output.LayerNorm", layer.ffn_ln)):
+            sd[p + hf + ".weight"] = mod.weight
+            sd[p + hf + ".bias"] = mod.bias
+    torch.save({k: v.detach().float().cpu().contiguous()
+                for k, v in sd.items()},
+               os.path.join(directory, "pytorch_model.bin"))
+
+
+def write_service_checkpoint(results, store, emb) -> None:
+    """Phase 7's inputs: phase 3's encoder as a local HF snapshot and its
+    store as ``<data>/engine_checkpoint`` under ``SERVICE_TMP``."""
+    shutil.rmtree(SERVICE_TMP, ignore_errors=True)
+    save_hf_snapshot(emb, os.path.join(SERVICE_TMP, "model"))
+    t0 = time.perf_counter()
+    store.save(os.path.join(SERVICE_TMP, "data", "engine_checkpoint"))
+    results["service"] = {"rows": store.count(),
+                          "checkpoint_save_s": time.perf_counter() - t0}
+    log(f"  {store.count()} rows saved as engine_checkpoint in "
+        f"{results['service']['checkpoint_save_s']:.1f} s; the encoder as a "
+        f"local HF snapshot")
+
+
+def sync() -> None:
+    import torch
+
+    if DEV == "cuda":
+        torch.cuda.synchronize()
+
+
+def check_routes(part: str, launches: dict, routes: dict,
+                 names=("fused_topk", "encoder_attention")) -> None:
+    """Every named kernel launched in the part, each launch on its fast
+    route (tensor cores for bf16 top-k and attention, vectorised code loads
+    for the ADC kernels)."""
+    for name in names:
+        route = "vector" if name.startswith("adc") else "tensor_core"
+        check(launches[name] > 0, f"{part}: {name} never launched")
+        check(routes[f"{name}:{route}"] == launches[name],
+              f"{part}: {name} launches off the {route} route {routes}")
+
+
+def run_clients(store, requests, during=None):
+    """``requests[c]`` = the (kind, query) calls of client c, each made from
+    its own thread in turn (kind "hybrid" or "semantic", k=10).  ``during``
+    runs on this thread once a quarter of the calls have returned.
+    → (results by (c, j), latencies s, wall s)."""
+    import threading
+
+    out, lat, errors = {}, [], []
+    lock = threading.Lock()
+    quarter = threading.Event()
+    n_calls = sum(len(r) for r in requests)
+
+    def client(c):
+        try:
+            for j, (kind, q) in enumerate(requests[c]):
+                t0 = time.perf_counter()
+                r = (store.hybrid_search(q, k=10) if kind == "hybrid"
+                     else store.similarity_search_with_score(q, k=10))
+                dt = time.perf_counter() - t0
+                with lock:
+                    out[(c, j)] = r
+                    lat.append(dt)
+                    if len(out) >= n_calls // 4:
+                        quarter.set()
+        except Exception as exc:   # reported below: the run fails
+            with lock:
+                errors.append(f"client {c}: {exc!r}")
+            quarter.set()
+
+    threads = [threading.Thread(target=client, args=(c,))
+               for c in range(len(requests))]
+    t0 = time.perf_counter()
+    for t in threads:
+        t.start()
+    if during is not None:
+        check(quarter.wait(600), "clients made no progress")
+        during()
+    for t in threads:
+        t.join(timeout=600)
+    wall = time.perf_counter() - t0
+    check(not any(t.is_alive() for t in threads), "a client did not finish")
+    check(not errors, f"client errors {errors[:3]}")
+    return out, lat, wall
+
+
+def latency_ms(lat) -> dict:
+    import numpy as np
+
+    return {"p50_ms": float(np.percentile(lat, 50)) * 1e3,
+            "p99_ms": float(np.percentile(lat, 99)) * 1e3}
+
+
+def short_query(rng, vocab) -> str:
+    return " ".join(vocab[int(i)] for i in rng.integers(
+        0, 2000, int(rng.integers(1, 4))))
+
+
+def service_flat(results, docs, vocab):
+    """7a: restore phase 3's checkpoint through ``build_vectorstore`` with
+    micro-batching at the defaults, serve 512 hybrid requests from 64
+    clients, hold each against the direct path, then rerank.  → launches by
+    part."""
+    import numpy as np
+
+    from archi_tpu_torch.bin.bootstrap import build_vectorstore
+    from archi_tpu_torch.engine import topk as engine_topk
+    from archi_tpu_torch.engine.flat_index import FlatIndex
+    from archi_tpu_torch.engine.reranker import MaxSimReranker
+    from archi_tpu_torch.models.embedder import TorchEmbedder
+    from archi_tpu_torch.ops import LAUNCHES, ROUTE_LAUNCHES, reset_launches
+    from archi_tpu_torch.utils.metrics import METRICS
+
+    out = results["service"]
+    model_dir = os.path.join(SERVICE_TMP, "model")
+    dm = {"embedding_name": "minilm", "model_dir": model_dir,
+          "data_path": os.path.join(SERVICE_TMP, "data"), "index": {},
+          "serving": {"micro_batch": {"enabled": True}}}
+    t0 = time.perf_counter()
+    st = build_vectorstore(dm, device=DEV)
+    out["restore_s"] = time.perf_counter() - t0
+    b = st._batcher
+    check(type(st.index) is FlatIndex and st.count() == out["rows"]
+          and b is not None
+          and (b.max_batch, b.max_wait_s, len(b._workers)) == (32, 0.004, 2),
+          "7a: the restored store is not the checkpoint's, micro-batched at "
+          "the defaults")
+    log(f"  7a: restored {st.count()} rows in {out['restore_s']:.1f} s "
+        f"(FlatIndex, micro-batching 32 / 4 ms / 2 workers)")
+
+    rng = np.random.default_rng(SEED + 7)
+    miss = "zzzzqx unmatched service query"
+    check(float(st.bm25.scores(miss, st.index.capacity).max()) <= 0.0,
+          "7a: the BM25-miss query matches")
+    reqs = []
+    for c in range(SVC_CLIENTS):
+        calls = [("hybrid", docs[int(i)])
+                 for i in rng.integers(0, len(docs), 4)]
+        calls += [("hybrid", short_query(rng, vocab)) for _ in range(3)]
+        calls.append(("hybrid", miss if c % 8 == 0
+                      else short_query(rng, vocab)))
+        reqs.append(calls)
+    n_req = SVC_CLIENTS * SVC_CALLS
+
+    engine_topk.FUSED_FALLBACKS["count"] = 0
+    reset_launches()
+    b0 = METRICS.counter_value("archi_micro_batches_total")
+    r0 = METRICS.counter_value("archi_micro_batched_requests_total")
+    got, lat, wall = run_clients(st, reqs)
+    sync()
+    launches, routes = dict(LAUNCHES), dict(ROUTE_LAUNCHES)
+    batches = METRICS.counter_value("archi_micro_batches_total") - b0
+    served = METRICS.counter_value("archi_micro_batched_requests_total") - r0
+    check_routes("7a", launches, routes)
+    check(engine_topk.FUSED_FALLBACKS["count"] == 0, "7a: top-k fell back")
+
+    # the same requests one at a time from one thread, the direct path
+    t0 = time.perf_counter()
+    want = {(c, j): st._hybrid_search_impl(q, k=10)
+            for c in range(SVC_CLIENTS) for j, (_k, q) in enumerate(reqs[c])}
+    seq_wall = time.perf_counter() - t0
+    bad = [key for key, w in want.items() if not same_ranking(got[key], w)]
+    check(not bad, f"7a: micro-batched results differ from the direct path "
+                   f"at {bad[:8]}")
+    check(served == n_req and served / batches > 1,
+          f"7a: {served} requests in {batches} batches")
+    out["flat"] = {"requests": n_req, "batches": batches,
+                   "mean_batch": served / batches,
+                   "qps_micro_batched": n_req / wall,
+                   "qps_request_at_a_time": n_req / seq_wall,
+                   **latency_ms(lat)}
+    log("  7a: " + json.dumps(out["flat"]))
+
+    # ---- MaxSim rerank of hybrid candidates, card against the CPU in f32
+    rq = [reqs[c][j][1] for c, j in ((0, 0), (1, 1), (2, 4), (3, 5),
+                                     (4, 2), (5, 6), (6, 3), (0, 7))]
+    cands = [st.hybrid_search(q, k=RERANK_TOP) for q in rq]
+    check(all(len(c) == RERANK_TOP for c in cands), "7a: short candidates")
+    reset_launches()
+    card = [MaxSimReranker(st._embedding_function).rerank(q, c)
+            for q, c in zip(rq, cands)]
+    sync()
+    rr_launches, rr_routes = dict(LAUNCHES), dict(ROUTE_LAUNCHES)
+    check_routes("rerank", rr_launches, rr_routes, ("encoder_attention",))
+    cpu_rr = MaxSimReranker(TorchEmbedder(model_dir=model_dir, device="cpu"))
+    err = 0.0
+    for q, c, got_ in zip(rq, cands, card):
+        ref = {d.metadata["chunk_id"]: s for d, s in cpu_rr.rerank(q, c)}
+        check(len(got_) == RERANK_TOP and len(ref) == RERANK_TOP,
+              "7a: rerank lost candidates")
+        err = max(err, max(abs(s - ref[d.metadata["chunk_id"]])
+                           for d, s in got_))
+    out["rerank_max_abs_err_vs_cpu_f32"] = err
+    check(err <= 1e-3, f"7a: rerank scores off the CPU's by {err:.3g}")
+    log(f"  rerank: top {RERANK_TOP} of {len(rq)} queries, scores within "
+        f"{err:.3g} of the same weights on the CPU in f32 (limit 1e-3)")
+    st._batcher.close()
+    return {"service_flat": (launches, routes),
+            "service_rerank": (rr_launches, rr_routes)}
+
+
+def service_hot_tail(results, docs, vocab):
+    """7b: the checkpoint restored as a hot-tail index, new documents into
+    the tail, a merge while 64 clients query."""
+    import numpy as np
+
+    from archi_tpu_torch.bin.bootstrap import build_vectorstore
+    from archi_tpu_torch.engine.segmented_index import SegmentedFlatIndex
+    from archi_tpu_torch.ops import LAUNCHES, ROUTE_LAUNCHES, reset_launches
+
+    out = results["service"]
+    dm = {"embedding_name": "minilm",
+          "model_dir": os.path.join(SERVICE_TMP, "model"),
+          "data_path": os.path.join(SERVICE_TMP, "data"),
+          "index": {"hot_tail": True},
+          "serving": {"micro_batch": {"enabled": True}}}
+    t0 = time.perf_counter()
+    st = build_vectorstore(dm, device=DEV)
+    restore_s = time.perf_counter() - t0
+    idx = st.index
+    n_main = out["rows"]
+    check(isinstance(idx, SegmentedFlatIndex) and idx.n_merged == n_main
+          and idx.tail.n_rows == 0, "7b: not a hot-tail index over the rows")
+    rng = np.random.default_rng(SEED + 8)
+    new_docs = synthetic_texts(rng, vocab, HOT_DOCS, 96, prefix="hot")
+
+    reset_launches()
+    t0 = time.perf_counter()
+    new_ids = st.add_texts(new_docs)
+    ingest_s = time.perf_counter() - t0
+    check(idx.tail.n_rows == HOT_DOCS and idx.n_merged == n_main,
+          "7b: the documents did not land in the tail")
+
+    def self_rank(label):
+        bad = []
+        for s0 in range(0, HOT_DOCS, 32):
+            res = st.hybrid_search_batch(new_docs[s0:s0 + 32], k=10)
+            for i, r in enumerate(res):
+                ids = ids_of(r)
+                if ids[:1] != [new_ids[s0 + i]] or len(set(ids)) != len(ids):
+                    bad.append(s0 + i)
+        check(not bad, f"7b {label}: documents {bad[:8]} miss rank 1 or "
+                       f"list a row twice")
+
+    self_rank("before the merge")
+    bq = new_docs[:16] + [docs[i] for i in range(0, len(docs),
+                                                  len(docs) // 16)][:16]
+    brute = brute_force_hybrid(st, bq, 10)
+    bad = [i for i, (g, w) in enumerate(zip(st.hybrid_search_batch(bq, k=10),
+                                            brute))
+           if not same_ranking(g, w)]
+    check(not bad, f"7b: hybrid batch differs from brute force at {bad}")
+
+    per = HOT_DOCS // SVC_CLIENTS
+    reqs = [[("hybrid", new_docs[c * per + j]) for j in range(per)]
+            for c in range(SVC_CLIENTS)]
+    merge_s = []
+
+    def merge():
+        t = time.perf_counter()
+        idx.merge()
+        merge_s.append(time.perf_counter() - t)
+
+    got, lat, wall = run_clients(st, reqs, during=merge)
+    bad = [(c, j) for (c, j), r in got.items()
+           if ids_of(r)[:1] != [new_ids[c * per + j]]
+           or len(set(ids_of(r))) != len(r)]
+    check(not bad, f"7b: during the merge {bad[:8]} missed rank 1 or listed "
+                   f"a row twice")
+    check(idx.n_merged == n_main + HOT_DOCS and idx.tail.n_rows == 0
+          and idx._merge_epoch == 1, "7b: the merge did not fold the tail")
+    self_rank("after the merge")
+    sync()
+    launches, routes = dict(LAUNCHES), dict(ROUTE_LAUNCHES)
+    check_routes("7b", launches, routes)
+    out["hot_tail"] = {"restore_s": restore_s, "ingest_s": ingest_s,
+                       "merge_s": merge_s[0], "requests_during_merge":
+                       len(got), "qps_during_merge": len(got) / wall,
+                       **latency_ms(lat)}
+    log("  7b: " + json.dumps(out["hot_tail"]))
+    st._batcher.close()
+    return {"service_hot_tail": (launches, routes)}
+
+
+def service_xl(results, vocab):
+    """7c: ``type: ivfpq_xl`` at the bootstrap's defaults: clustered rows
+    through ``add_texts``, a snapshot, documents in the exact tail,
+    micro-batched hybrid and semantic queries, recall, exact scores and a
+    save/load round trip."""
+    import numpy as np
+    import torch
+
+    from archi_tpu_torch.bin.bootstrap import build_vectorstore
+    from archi_tpu_torch.engine import topk as engine_topk
+    from archi_tpu_torch.engine.xl_index import XlPQIndex
+    from archi_tpu_torch.ops import LAUNCHES, ROUTE_LAUNCHES, reset_launches
+
+    out = {}
+    xl_dir = os.path.join(SERVICE_TMP, "xl")
+    dm = {"embedding_name": "minilm",
+          "model_dir": os.path.join(SERVICE_TMP, "model"),
+          "data_path": os.path.join(xl_dir, "data"),
+          "index": {"type": "ivfpq_xl",
+                    "store_path": os.path.join(xl_dir, "plane.bin")},
+          "serving": {"micro_batch": {"enabled": True}}}
+    st = build_vectorstore(dm, device=DEV)
+    idx = st.index
+    check(isinstance(idx, XlPQIndex) and st.count() == 0
+          and (idx.nlist, idx.block, idx.pq_m, idx.pq_refine_m, idx.ksub,
+               idx.nprobe_blocks, idx.build_block_rows, idx.async_refresh)
+          == (4096, 512, 48, 48, 16, 128, 1 << 17, True),
+          "7c: not an XL index at the bootstrap's defaults")
+    rng = np.random.default_rng(SEED + 9)
+    corpus = ClusteredRows(XL_ROWS, SEED + 10, d=idx.dim)
+    fill = synthetic_texts(rng, vocab, XL_ROWS, 3)
+
+    engine_topk.FUSED_FALLBACKS["count"] = 0
+    reset_launches()
+    t0 = time.perf_counter()
+    for s0 in range(0, XL_ROWS, FILL_BATCH):
+        chunk = fill[s0:s0 + FILL_BATCH]
+        st.add_texts(chunk, embeddings=corpus.rows(len(chunk)))
+    if idx._refresh_thread is not None:
+        idx._refresh_thread.join()
+    out["fill_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    idx.refresh_snapshot()
+    out["snapshot_build_s"] = time.perf_counter() - t0
+    check(idx._n_snap == XL_ROWS and idx._ivf.packed
+          and idx.refresh_failures == 0, "7c: no whole-plane snapshot")
+    out["n_blocks"] = int(idx._ivf.code_blocks.shape[0])
+    xl_docs = synthetic_texts(rng, vocab, XL_DOCS, 96, prefix="xl")
+    t0 = time.perf_counter()
+    xl_ids = st.add_texts(xl_docs)
+    out["ingest_s"] = time.perf_counter() - t0
+    check(idx._n_snap == XL_ROWS and idx.n_rows == XL_ROWS + XL_DOCS
+          and len(idx.tail) == XL_DOCS, "7c: documents not in the tail")
+    log(f"  7c: filled {XL_ROWS} rows in {out['fill_s']:.1f} s, snapshot "
+        f"({out['n_blocks']} blocks) in {out['snapshot_build_s']:.1f} s, "
+        f"{XL_DOCS} documents into the exact tail")
+
+    sem_q = [short_query(rng, vocab) for _ in range(SVC_CLIENTS * 4)]
+    probe = rng.choice(XL_DOCS, SVC_CLIENTS * 4, replace=False)
+    reqs = [[("hybrid", xl_docs[probe[c * 4 + j]]) for j in range(4)]
+            + [("semantic", sem_q[c * 4 + j]) for j in range(4)]
+            for c in range(SVC_CLIENTS)]
+    got, lat, wall = run_clients(st, reqs)
+    bad = [c for c in range(SVC_CLIENTS) for j in range(4)
+           if ids_of(got[(c, j)])[:1] != [xl_ids[probe[c * 4 + j]]]]
+    check(not bad, f"7c: fresh documents miss rank 1 ({len(bad)})")
+    check(all(len(r) == 10 for r in got.values()), "7c: short results")
+
+    # exact scores of one semantic batch against the host plane's rows
+    qs = sem_q[:32]
+    res = st.similarity_search_batch(qs, k=10)
+    embs = st._embed_queries(qs)
+    embs = embs / np.maximum(np.linalg.norm(embs, axis=1, keepdims=True),
+                             1e-12)
+    q_bf16 = torch.from_numpy(embs).bfloat16().float().numpy()
+    err = 0.0
+    for b, r in enumerate(res):
+        for d, s in r:
+            row = idx._id_rows[d.metadata["chunk_id"]][0]
+            plane = idx.store.get([row])[0]
+            # snapshot rows: the exact host rerank (f32 query); tail rows:
+            # the bf16 top-k, which rounds the query to the rows' type
+            q = embs[b] if row < idx._n_snap else q_bf16[b]
+            err = max(err, abs(s - float(plane @ q)))
+    out["score_max_abs_err_vs_plane"] = err
+    check(err <= 1e-4, f"7c: scores off the exact products by {err:.3g}")
+
+    # recall@10 of semantic search through the store, clustered queries
+    qv = corpus.rows(32)
+    rows = []
+    for q in qv.cpu().numpy():
+        r = st.similarity_search_by_vector_with_score(q, k=10)
+        rows.append(np.asarray([idx._id_rows[d.metadata["chunk_id"]][0]
+                                for d, _s in r]))
+    n = idx.n_rows
+    plane = torch.from_numpy(np.array(idx.store._buf[:n]).view(np.int16)) \
+        .to(DEV).view(torch.bfloat16)
+    exact = exact_top10(plane, n, qv)
+    del plane
+    out["recall_at_10"] = recall_at_10(rows, exact)
+    check(out["recall_at_10"] >= 0.9,
+          f"7c: recall@10 {out['recall_at_10']:.3f} < 0.9")
+
+    # save/load round trip of the index
+    path = os.path.join(xl_dir, "ckpt", "index.npz")
+    before = idx.search(qv, k=10)
+    t0 = time.perf_counter()
+    idx.save(path)
+    loaded = XlPQIndex.load(path, device=DEV)
+    after = loaded.search(qv, k=10)
+    out["save_load_s"] = time.perf_counter() - t0
+    check(after[0] == before[0] and np.abs(after[1] - before[1]).max() <= 1e-6,
+          "7c: the save/load round trip changed the results")
+    del loaded
+    sync()
+    launches, routes = dict(LAUNCHES), dict(ROUTE_LAUNCHES)
+    check_routes("7c", launches, routes,
+                 ("fused_topk", "encoder_attention", "adc_scores_lut16"))
+    check(engine_topk.FUSED_FALLBACKS["count"] == 0, "7c: top-k fell back")
+    out.update(requests=len(got), qps_micro_batched=len(got) / wall,
+               **latency_ms(lat))
+    results["service"]["xl"] = out
+    log("  7c: " + json.dumps(out))
+    st._batcher.close()
+    return {"service_xl": (launches, routes)}
+
+
 def main() -> int:
     import torch
 
@@ -1078,6 +1560,8 @@ def main() -> int:
 
     log("phase 4: timings")
     timings(results, store, emb, hybrid_q, docs)
+    log("phase 7 inputs: phase 3's encoder and store written to disk")
+    write_service_checkpoint(results, store, emb)
     del store
     torch.cuda.empty_cache()
 
@@ -1086,10 +1570,24 @@ def main() -> int:
 
     log("phase 6: path B, the XL tier's packed 4-bit snapshot")
     launches_b = path_b(results, store_a.index, corpus)
-    # each path ran with the counts set to 0 just before it
+    del store_a, corpus, _q, _exact
+    torch.cuda.empty_cache()
+
+    log("phase 7: the service layer (bootstrap, micro-batching, hot tail, "
+        "XL, rerank)")
+    try:
+        parts = service_flat(results, docs, vocab)
+        parts.update(service_hot_tail(results, docs, vocab))
+        parts.update(service_xl(results, vocab))
+    finally:
+        shutil.rmtree(SERVICE_TMP, ignore_errors=True)
+    # each path and part ran with the counts set to 0 just before it
     results["launches"] = {"main": launches, "path_a": launches_a,
                            "path_b": launches_b}
-    launches = {name: launches[name] + launches_a[name] + launches_b[name]
+    for part, (part_launches, part_routes) in parts.items():
+        results["launches"][part] = part_launches
+        results["routes"][part] = part_routes
+    launches = {name: sum(p[name] for p in results["launches"].values())
                 for name in launches}
     results["seconds"] = time.perf_counter() - t_start
     log("detail " + json.dumps(results))

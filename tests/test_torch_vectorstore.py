@@ -185,7 +185,17 @@ def test_save_load_cross_package(stores, tmp_path):
 
 
 def test_warmup_and_micro_batching(stores):
-    _, ts = stores
+    """Micro-batched search through the scheduler equals the direct path
+    and the JAX store; warmup runs with the scheduler on."""
+    js, ts = stores
     ts.warmup(k=3)
-    with pytest.raises(NotImplementedError, match="service-wiring"):
-        ts.enable_micro_batching()
+    ts.enable_micro_batching(max_batch=4, max_wait_ms=1)
+    try:
+        ts.warmup(k=3)
+        for q in QUERIES[:3]:
+            assert_same(ts.hybrid_search(q, k=5), js.hybrid_search(q, k=5))
+            assert_same(ts.similarity_search_with_score(q, k=5),
+                        ts._similarity_search_impl(q, k=5))
+    finally:
+        ts._batcher.close()
+        ts._batcher = None
