@@ -13,6 +13,16 @@ machine that has them::
 
 The device is an argument: the card by default (raising without CUDA), or
 ``"cpu"``.  No environment variable moves the port to the CPU.
+
+Two things the upper layers do not know about the port's store, and the
+caller wires once:
+
+- ``/metrics`` renders the JAX package's registry: hand it to the port with
+  ``archi_tpu_torch.utils.metrics.use_registry(archi_tpu.utils.metrics.METRICS)``;
+- the JAX pipelines build their MaxSim rerank step only for an embedder
+  with ``params``, so with ``retrievers.hybrid_retriever.rerank.enabled``
+  they would return the over-fetched pool unranked: ``attach_reranker``
+  gives each pipeline the port's reranker.
 """
 
 from __future__ import annotations
@@ -23,6 +33,7 @@ import os
 from archi_tpu_torch.engine.ann_index import AnnFlatIndex
 from archi_tpu_torch.engine.bm25 import BM25Index
 from archi_tpu_torch.engine.flat_index import FlatIndex
+from archi_tpu_torch.engine.reranker import MaxSimReranker, RerankingRetriever
 from archi_tpu_torch.engine.segmented_index import SegmentedFlatIndex
 from archi_tpu_torch.engine.vectorstore import TorchVectorStore
 from archi_tpu_torch.engine.xl_index import XlPQIndex
@@ -119,6 +130,49 @@ def _restore(checkpoint_dir: str, embedder, index_cfg: dict, device):
                                  index_loader=index_loader)
 
 
+def _rerank_settings(dm_cfg: dict):
+    """(rerank enabled, k) from ``retrievers.hybrid_retriever``."""
+    hybrid = (dm_cfg.get("retrievers") or {}).get("hybrid_retriever") or {}
+    return (bool((hybrid.get("rerank") or {}).get("enabled")),
+            hybrid.get("num_documents_to_retrieve", 5))
+
+
+def attach_reranker(pipeline, dm_cfg: dict | None = None) -> bool:
+    """Give a built pipeline the port's MaxSim rerank step.
+
+    With ``retrievers.hybrid_retriever.rerank.enabled`` in ``dm_cfg``
+    (default: the pipeline's ``dm_config``), the pipeline's ``retriever``
+    (which the pipeline already built with k raised to the over-fetch) is
+    wrapped in ``RerankingRetriever(retriever, MaxSimReranker(store's
+    embedder), k=num_documents_to_retrieve)``, now and after every
+    ``update_retriever`` call (the orchestrator rebuilds the retriever on
+    each request).  Duck-typed: any object with ``retriever`` and
+    ``update_retriever(vectorstore, enabled_ids=None)``.  Returns whether
+    the rerank is on."""
+    enabled, k = _rerank_settings(
+        getattr(pipeline, "dm_config", {}) if dm_cfg is None else dm_cfg)
+    if not enabled:
+        return False
+
+    def wrap():
+        base = pipeline.retriever
+        if base is None or getattr(base, "reranker", None) is not None:
+            return
+        embedder = base.vectorstore._embedding_function
+        pipeline.retriever = RerankingRetriever(
+            base, MaxSimReranker(embedder), k=k)
+
+    update = pipeline.update_retriever
+
+    def update_retriever(vectorstore, enabled_ids=None):
+        update(vectorstore, enabled_ids)
+        wrap()
+
+    pipeline.update_retriever = update_retriever
+    wrap()
+    return True
+
+
 def build_vectorstore(dm_cfg: dict, *, device=None) -> TorchVectorStore:
     """data_manager config section → the port's ``TorchVectorStore``.
 
@@ -126,8 +180,17 @@ def build_vectorstore(dm_cfg: dict, *, device=None) -> TorchVectorStore:
     ``<data_path>/engine_checkpoint`` when it exists (a restore that fails
     is logged and the store is built afresh, as in the JAX package), and
     turns on ``serving.micro_batch`` with the reference's defaults
-    (max_batch 32, max_wait_ms 4.0, workers 2)."""
+    (max_batch 32, max_wait_ms 4.0, workers 2).  With
+    ``retrievers.hybrid_retriever.rerank.enabled`` it logs an error: the
+    JAX pipelines skip the rerank over this store unless the caller wraps
+    them with ``attach_reranker``."""
     device = default_device(device)
+    if _rerank_settings(dm_cfg)[0]:
+        _logger.error(
+            "retrievers.hybrid_retriever.rerank.enabled: the JAX pipelines "
+            "skip the MaxSim rerank over the port's store and return the "
+            "over-fetched pool; wrap each pipeline with "
+            "archi_tpu_torch.bin.bootstrap.attach_reranker(pipeline)")
     embedder = resolve_embedder(dm_cfg, device=device)
     index_cfg = dm_cfg.get("index") or {}
     checkpoint_dir = os.path.join(dm_cfg["data_path"], "engine_checkpoint")

@@ -36,6 +36,7 @@ import numpy as np
 import torch
 
 from archi_tpu_torch.models.tokenizer import basic_tokenize
+from archi_tpu_torch.native import count_route, native_analyze
 from archi_tpu_torch.utils.hardware import default_device
 from archi_tpu_torch.utils.stemmer import stem as porter_stem
 
@@ -61,8 +62,16 @@ def analyze(text: str, *, stemming: bool = False,
             stopwords: frozenset = STOPWORDS) -> list[str]:
     """Text → lexical terms (lowercase, stopword-filtered, optional Porter).
 
-    The pure-Python path of the JAX package's ``analyze`` (its C++ analyser
-    gives the same terms and is not carried over)."""
+    ASCII texts (and Latin texts that transliterate to ASCII) run through
+    the C++ analyzer (``archi_tpu_torch/native/text_analyzer.cc``) when it
+    is available and the stopwords are the default ones — the same terms,
+    without the per-character Python loop of the ingest hot path."""
+    if stopwords is STOPWORDS:
+        terms = native_analyze(text, stemming=stemming)
+        if terms is not None:
+            count_route("analyze:native")
+            return terms
+    count_route("analyze:python")
     toks = [t for t in basic_tokenize(text)
             if len(t) > 1 and not t.isdigit() and t not in stopwords
             and t.isalnum()]

@@ -11,7 +11,13 @@ and L2 normalisation.  Covers the MiniLM / bge-small / bge-base families.
   attention kernel reads its ``[B, S, 3H]`` output per head through strides.
 - Embedding tables and LayerNorm parameters stay f32; the linear layers run
   in the compute dtype (bf16 on the card), as the JAX package casts its f32
-  parameters to the compute dtype at use.
+  parameters to the compute dtype at use.  ``from_state`` stores the linear
+  weights in that dtype for serving; ``for_training`` keeps every parameter
+  f32 (the master copy the optimizer updates) and casts at use.
+- ``embed`` is the differentiable forward pass; ``encode`` and
+  ``encode_tokens`` run under ``torch.inference_mode``.  Attention is
+  ``ops.attention.differentiable_attention``: the kernel's forward, and a
+  gradient recomputed through the plain version under autograd.
 """
 
 from __future__ import annotations
@@ -24,7 +30,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from archi_tpu_torch.ops.attention import encoder_attention
+from archi_tpu_torch.ops.attention import differentiable_attention
 
 
 @dataclasses.dataclass(frozen=True)
@@ -109,6 +115,12 @@ def _layer_norm(x: torch.Tensor, ln: nn.LayerNorm) -> torch.Tensor:
     return y.to(x.dtype)
 
 
+def _linear(x: torch.Tensor, lin: nn.Linear) -> torch.Tensor:
+    """``lin(x)`` in x's dtype (the parameters cast at use when they are
+    kept in another, as the JAX package does)."""
+    return F.linear(x, lin.weight.to(x.dtype), lin.bias.to(x.dtype))
+
+
 class EncoderLayer(nn.Module):
     """One post-LN BERT layer."""
 
@@ -128,14 +140,15 @@ class EncoderLayer(nn.Module):
         b, s, h = x.shape
         nh = self.num_heads
         hd = h // nh
-        qkv = self.qkv(x)                                   # [B, S, 3H]
+        qkv = _linear(x, self.qkv)                          # [B, S, 3H]
         q, k, v = (qkv[..., i * h:(i + 1) * h].view(b, s, nh, hd)
                    for i in range(3))
-        ctx = encoder_attention(q, k, v, key_bias,
-                                sm_scale=1.0 / math.sqrt(hd))
-        x = _layer_norm(x + self.o(ctx.view(b, s, h)), self.attn_ln)
-        inter = F.gelu(self.ffn_i(x).float(), approximate="none").to(x.dtype)
-        return _layer_norm(x + self.ffn_o(inter), self.ffn_ln)
+        ctx = differentiable_attention(q, k, v, key_bias,
+                                       sm_scale=1.0 / math.sqrt(hd))
+        x = _layer_norm(x + _linear(ctx.view(b, s, h), self.o), self.attn_ln)
+        inter = F.gelu(_linear(x, self.ffn_i).float(),
+                       approximate="none").to(x.dtype)
+        return _layer_norm(x + _linear(inter, self.ffn_o), self.ffn_ln)
 
 
 class BertEncoder(nn.Module):
@@ -153,6 +166,8 @@ class BertEncoder(nn.Module):
             EncoderLayer(config) for _ in range(config.num_layers))
         if config.pooling == "attn":
             self.pool_attn = nn.Parameter(torch.zeros(h))
+        #: dtype of the encoder layers' activations and products
+        self.compute_dtype = torch.float32
 
     @classmethod
     def from_state(cls, config: BertConfig, state: dict, *, device,
@@ -165,12 +180,21 @@ class BertEncoder(nn.Module):
         for m in model.modules():
             if isinstance(m, nn.Linear):
                 m.to(compute_dtype)
+        model.compute_dtype = compute_dtype
         return model.eval().requires_grad_(False)
 
-    @property
-    def compute_dtype(self) -> torch.dtype:
-        return self.layers[0].qkv.weight.dtype if len(self.layers) \
-            else torch.float32
+    @classmethod
+    def for_training(cls, config: BertConfig, state: dict, *, device,
+                     compute_dtype=torch.float32) -> "BertEncoder":
+        """A trainable model holding ``state`` on ``device``: every
+        parameter f32 and requiring gradients, the forward pass in
+        ``compute_dtype`` (the JAX trainer's f32 parameters under
+        ``encode(..., compute_dtype=jnp.bfloat16)``)."""
+        model = cls(config)
+        model.load_state_dict(state)
+        model.to(device)
+        model.compute_dtype = compute_dtype
+        return model.train().requires_grad_(True)
 
     def forward(self, input_ids, attention_mask, token_type_ids=None):
         """input_ids, attention_mask: [B, S] → [B, S, H] in compute dtype."""
@@ -187,10 +211,10 @@ class BertEncoder(nn.Module):
         return x
 
 
-@torch.inference_mode()
-def encode(model: BertEncoder, input_ids, attention_mask,
-           token_type_ids=None) -> torch.Tensor:
-    """Forward pass → pooled, (optionally) L2-normalized [B, H] f32."""
+def embed(model: BertEncoder, input_ids, attention_mask,
+          token_type_ids=None) -> torch.Tensor:
+    """Forward pass → pooled, (optionally) L2-normalized [B, H] f32, under
+    autograd when it is on (the trainer's loss)."""
     config = model.config
     x = model(input_ids, attention_mask, token_type_ids).float()
     m = attention_mask.float()[:, :, None]
@@ -207,6 +231,13 @@ def encode(model: BertEncoder, input_ids, attention_mask,
         pooled = pooled / torch.clamp(
             torch.linalg.vector_norm(pooled, dim=-1, keepdim=True), min=1e-12)
     return pooled
+
+
+@torch.inference_mode()
+def encode(model: BertEncoder, input_ids, attention_mask,
+           token_type_ids=None) -> torch.Tensor:
+    """Forward pass → pooled, (optionally) L2-normalized [B, H] f32."""
+    return embed(model, input_ids, attention_mask, token_type_ids)
 
 
 @torch.inference_mode()

@@ -12,6 +12,12 @@ in f32) and the row sum is taken from them in f32.  ``encoder_attention``
 launches ``csrc/encoder_attention.cu`` on CUDA tensors — bf16 on the
 tensor cores, f32 on the CUDA cores — and takes ``plain_attention`` on CPU
 tensors.
+
+``differentiable_attention`` is the same call under autograd, for training:
+its forward is ``encoder_attention`` (the kernel on the card), its backward
+recomputes the gradient through ``plain_attention`` from the saved q, k, v
+and key bias.  The TPU kernel has no backward either: the JAX trainer runs
+XLA attention under ``jax.grad``.
 """
 
 from __future__ import annotations
@@ -30,10 +36,15 @@ _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _ROUTES = {torch.float32: "cuda_core", torch.bfloat16: "tensor_core"}
 
 
+def _wide(t):
+    """f32, or f64 for f64 inputs (gradient checks in double precision)."""
+    return t if t.dtype == torch.float64 else t.float()
+
+
 def _probabilities(q, k, key_bias, sm_scale):
     """Unnormalised f32 probabilities [B, nh, S, S] and their row sums."""
-    bias = key_bias.float() * LOG2E
-    logits = (torch.einsum("bqnd,bknd->bnqk", q.float(), k.float())
+    bias = _wide(key_bias) * LOG2E
+    logits = (torch.einsum("bqnd,bknd->bnqk", _wide(q), _wide(k))
               * (sm_scale * LOG2E) + bias[:, None, None, :])
     p = torch.exp2(logits - logits.amax(dim=-1, keepdim=True))
     return p, p.sum(dim=-1)
@@ -49,8 +60,8 @@ def plain_attention(q, k, v, key_bias, *, sm_scale: float):
     q, k, v: [B, S, nh, hd]; key_bias: [B, S] f32 (0 real, -1e9 padding).
     Returns the contiguous context [B, S, nh, hd] in q's dtype."""
     p, denom = _probabilities(q, k, key_bias, sm_scale)
-    p = p.to(q.dtype).float()       # the TPU kernel's p.astype(v.dtype)
-    ctx = torch.einsum("bnqk,bknd->bqnd", p, v.float())
+    p = _wide(p.to(q.dtype))        # the TPU kernel's p.astype(v.dtype)
+    ctx = torch.einsum("bnqk,bknd->bqnd", p, _wide(v))
     return _normalise(ctx, denom).to(q.dtype).contiguous()
 
 
@@ -140,3 +151,33 @@ def encoder_attention(q, k, v, key_bias, *, sm_scale: float):
             f"{lib.archi_attention_error_string(rc).decode()} (error {rc})")
     count_launch("encoder_attention", _ROUTES[q.dtype])
     return out
+
+
+class _EncoderAttention(torch.autograd.Function):
+    """``encoder_attention`` forward; gradient of ``plain_attention``."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, key_bias, sm_scale):
+        ctx.save_for_backward(q, k, v, key_bias)
+        ctx.sm_scale = sm_scale
+        return encoder_attention(q, k, v, key_bias, sm_scale=sm_scale)
+
+    @staticmethod
+    def backward(ctx, grad_out):
+        saved = ctx.saved_tensors
+        needs = ctx.needs_input_grad[:4]
+        with torch.enable_grad():
+            inputs = [t.detach().requires_grad_(n) for t, n in zip(saved, needs)]
+            out = plain_attention(*inputs, sm_scale=ctx.sm_scale)
+            wanted = [t for t in inputs if t.requires_grad]
+            grads = iter(torch.autograd.grad(out, wanted, grad_out))
+        return (*(next(grads) if n else None for n in needs), None)
+
+
+def differentiable_attention(q, k, v, key_bias, *, sm_scale: float):
+    """``encoder_attention`` with a gradient (module docstring); outside
+    autograd (``torch.no_grad``, ``torch.inference_mode``) it is
+    ``encoder_attention`` itself."""
+    if not torch.is_grad_enabled():
+        return encoder_attention(q, k, v, key_bias, sm_scale=sm_scale)
+    return _EncoderAttention.apply(q, k, v, key_bias, sm_scale)

@@ -1,6 +1,15 @@
 """Metrics registry + Prometheus text exposition.
 
-Copy of ``archi_tpu/utils/metrics.py``.
+Copy of ``archi_tpu/utils/metrics.py``, plus ``use_registry``: a service
+that renders another registry on its ``/metrics`` (the JAX package's
+data-manager app renders ``archi_tpu.utils.metrics.METRICS``) hands it to
+the port, and every counter the port writes lands there::
+
+    from archi_tpu.utils.metrics import METRICS as service_metrics
+    archi_tpu_torch.utils.metrics.use_registry(service_metrics)
+
+``METRICS`` forwards to the registry in use, so modules that bound it at
+import time follow the switch.
 
 The reference's observability is a Grafana service reading Postgres tables
 directly (SURVEY.md §5.5: ``init.sql:534-559``, provisioned dashboard).
@@ -108,5 +117,27 @@ class MetricsRegistry:
         return "\n".join(lines) + "\n"
 
 
-#: process-wide default registry
-METRICS = MetricsRegistry()
+class _Forward:
+    """Forwards every attribute to the registry in use."""
+
+    def __init__(self, registry):
+        self.target = registry
+
+    def __getattr__(self, name):
+        return getattr(self.target, name)
+
+
+_OWN = MetricsRegistry()
+
+#: the process-wide registry the port writes to (its own unless a caller
+#: handed it another through ``use_registry``)
+METRICS = _Forward(_OWN)
+
+
+def use_registry(registry=None):
+    """Write the port's metrics to ``registry`` (any object with the
+    ``MetricsRegistry`` methods); ``None`` returns to the port's own.
+    Returns the registry in use before."""
+    previous = METRICS.target
+    METRICS.target = _OWN if registry is None else registry
+    return previous

@@ -8,7 +8,9 @@ Run from the root of the repository, on a machine with an NVIDIA H100:
 Phases (each fails the run with a non-zero exit):
   1. print the card (nvidia-smi name, power limit) and build the CUDA
      kernels of ``archi_tpu_torch/csrc`` from source, logging each
-     kernel's registers, spills and static shared memory (ptxas);
+     kernel's registers, spills and static shared memory (ptxas), and the
+     native text analyzer (``archi_tpu_torch/native``, g++) beside them;
+     the run fails if the analyzer does not load;
   2. hold each kernel against its plain PyTorch version on the card, at the
      shapes the main path gives them (2^20 live rows of 384 in a 2^21-row
      index; MiniLM-L6's attention at the ingest and query buckets) and a
@@ -20,8 +22,13 @@ Phases (each fails the run with a non-zero exit):
      semantic and hybrid searches, check them against a brute-force scan of
      the same tensors, and check that both kernels' launch counters rose
      during that run, every launch on the tensor-core route (the index and
-     the encoder are bf16), while the top-k fallback counter stayed at 0;
-  4. time the encoder and the query paths with CUDA events;
+     the encoder are bf16), while the top-k fallback counter stayed at 0,
+     and that every document and query took the native analyzer and
+     WordPiece encoder;
+  4. time the encoder and the query paths with CUDA events, and ingest's
+     stages over 1024 documents on both routes of the text analysis (the
+     native library, then the Python functions), with the ingest rate of
+     each;
   5. path A, ``type: ivfpq`` serving: ``TorchVectorStore`` over
      ``AnnFlatIndex(snapshot_kind="ivfpq")`` at the bootstrap's defaults,
      documents through the encoder and a clustered corpus filled to 2^22
@@ -43,7 +50,13 @@ Phases (each fails the run with a non-zero exit):
      while 64 clients query; (c) ``type: ivfpq_xl`` at the bootstrap's
      defaults, 2^20 clustered rows, a snapshot, 4096 documents in the exact
      tail, micro-batched hybrid and semantic queries, recall, exact scores
-     and a save/load round trip.
+     and a save/load round trip;
+  8. the trainer (``models/train_encoder.py``) at MiniLM-L6's widths over
+     phase 3's first 1024 documents: step 0 at f32 on the card against the
+     CPU (loss and gradients, 1e-4 relative), 100 bf16 steps (the loss
+     falls, every attention launch on the tensor cores), then the export
+     served through ``build_vectorstore``: query views of 64 documents
+     find their document at rank 1 (at least 0.75).
 
 Phase 2 also holds both ADC kernels against their plain versions at the
 shapes of paths A and B, and times them with the codes in L2, just
@@ -64,6 +77,7 @@ import re
 import shutil
 import subprocess
 import sys
+import threading
 import time
 
 #: H100 SXM peaks (NVIDIA data sheet; dense, at the full 700 W)
@@ -90,11 +104,22 @@ XL_ROWS = 1 << 20          # clustered rows of the XL store (7c)
 XL_DOCS = 4096             # documents in its exact tail
 RERANK_QUERIES = 8
 RERANK_TOP = 50
+# phase 8, the trainer: MiniLM-L6's widths, phase 3's first documents
+TRAIN_HIDDEN = 384
+TRAIN_LAYERS = 6
+TRAIN_HEADS = 12
+TRAIN_DOCS = 1024
+TRAIN_VOCAB = 8192
+TRAIN_BATCH = 64
+TRAIN_SEQ = 96
+TRAIN_STEPS = 100
+TRAIN_PROBES = 64
 #: where the service phase runs: the card (the CPU only in a rehearsal of
 #: the phase at small sizes)
 DEV = "cuda"
 ROOT = os.path.dirname(os.path.abspath(__file__))
 SERVICE_TMP = os.path.join(ROOT, ".chip_tmp", "service")
+TRAIN_TMP = os.path.join(ROOT, ".chip_tmp", "train")
 
 
 class SmokeFailure(RuntimeError):
@@ -108,6 +133,15 @@ def check(cond: bool, msg: str) -> None:
 
 def log(*args) -> None:
     print(*args, flush=True)
+
+
+def check_native_routes(part: str, routes: dict) -> None:
+    """Every text of the part (all ASCII) went through the native analyzer
+    and WordPiece encoder, and at least one did."""
+    check(routes["analyze:python"] == 0 and routes["encode:python"] == 0,
+          f"{part}: ASCII texts took the Python route {routes}")
+    check(routes["analyze:native"] > 0 or routes["encode:native"] > 0,
+          f"{part}: the native library served nothing {routes}")
 
 
 def card_line() -> str:
@@ -499,6 +533,7 @@ def main_path(results: dict):
     import numpy as np
     import torch
 
+    from archi_tpu_torch import native
     from archi_tpu_torch.engine import topk as engine_topk
     from archi_tpu_torch.engine.vectorstore import TorchVectorStore
     from archi_tpu_torch.models.bert import BertConfig
@@ -527,6 +562,7 @@ def main_path(results: dict):
     # ---- the main path, counted
     engine_topk.FUSED_FALLBACKS["count"] = 0
     reset_launches()
+    native.reset_routes()
     t0 = time.perf_counter()
     doc_ids = store.add_texts(
         docs, metadatas=[{"resource_hash": f"r{i % 64}",
@@ -585,6 +621,10 @@ def main_path(results: dict):
               f"{name}: launches off the tensor-core route {routes}")
     results["routes"] = {"main": routes}
     check(fallbacks == 0, "the top-k fell back to the plain version")
+    text_routes = dict(native.ROUTES)
+    log(f"  text analysis routes {text_routes}")
+    check_native_routes("main path", text_routes)
+    results["text_routes"] = {"main": text_routes}
 
     # ---- checks against a brute-force scan of the same tensors
     check(all(len(r) == 10 for r in hybrid + semantic32 + semantic256),
@@ -621,10 +661,13 @@ def main_path(results: dict):
 
 def timings(results, store, emb, hybrid_q, docs):
     """Phase 4: encoder and query times on the card, and where the time of
-    a batched hybrid search and of ingest goes."""
+    a batched hybrid search and of ingest goes (ingest on both routes of
+    the text analysis)."""
     import numpy as np
     import torch
 
+    from archi_tpu_torch import native
+    from archi_tpu_torch.engine.vectorstore import TorchVectorStore
     from archi_tpu_torch.models.bert import encode
 
     rng = np.random.default_rng(SEED + 2)
@@ -671,19 +714,49 @@ def timings(results, store, emb, hybrid_q, docs):
         lambda: store.index.search(embs, k=10, bias=bm * w))
     _, t_rows = stage(lambda: [store._rows_to_results(rows[b], vals[b])
                                for b in range(len(hybrid_q))])
-    docs = docs[:1024]
-    id_lists, t_tok = stage(
-        lambda: [emb.tokenizer.encode(t, emb.max_length) for t in docs])
-    _, t_enc = stage(lambda: emb.encode_ids(id_lists))
-    _, t_ana = stage(lambda: store.bm25.analyze_batch(docs))
     results["breakdown"] = {
         "hybrid_batch32_ms": {"bm25_scores": t_bm25 * 1e3,
                               "embed_queries": t_embed * 1e3,
                               "index_search": t_scan * 1e3,
-                              "rows_to_results": t_rows * 1e3},
-        "ingest_1024_docs_ms": {"tokenize": t_tok * 1e3,
-                                "encode": t_enc * 1e3,
-                                "bm25_analyze": t_ana * 1e3}}
+                              "rows_to_results": t_rows * 1e3}}
+
+    # ingest of the same 1024 documents through the native analyzer and
+    # WordPiece encoder (the normal route), then through the Python route
+    docs = docs[:1024]
+    outputs, rates = {}, {}
+    for route in ("native", "python"):
+        previous = native.use_native(route == "native")
+        native.reset_routes()
+        try:
+            id_lists, t_tok = stage(
+                lambda: [emb.tokenizer.encode(t, emb.max_length)
+                         for t in docs])
+            terms, t_ana = stage(lambda: store.bm25.analyze_batch(docs))
+            _, t_ing = stage(lambda: TorchVectorStore(emb).add_texts(docs))
+        finally:
+            native.use_native(previous)
+        routes = dict(native.ROUTES)
+        outputs[route] = (id_lists, terms)
+        rates[route] = len(docs) / t_ing
+        results["breakdown"][f"ingest_1024_docs_ms_{route}"] = {
+            "tokenize": t_tok * 1e3, "bm25_analyze": t_ana * 1e3,
+            "add_texts": t_ing * 1e3}
+        results["text_routes"][f"ingest_{route}"] = routes
+        log(f"  ingest of 1024 documents, {route} route: tokenize "
+            f"{t_tok * 1e3:.1f} ms, bm25_analyze {t_ana * 1e3:.1f} ms, "
+            f"add_texts {t_ing * 1e3:.1f} ms ({rates[route]:.0f} docs/s); "
+            f"routes {routes}")
+    # each of the two runs makes 2048 calls of each function
+    check_native_routes("ingest, native route", results["text_routes"][
+        "ingest_native"])
+    check(results["text_routes"]["ingest_python"]["analyze:native"] == 0
+          and results["text_routes"]["ingest_python"]["encode:native"] == 0,
+          "ingest, Python route: the native library served calls")
+    check(outputs["native"] == outputs["python"],
+          "the native and Python routes give other ids or terms")
+    _, t_enc = stage(lambda: emb.encode_ids(outputs["native"][0]))
+    results["breakdown"]["ingest_1024_docs_ms_native"]["encode"] = t_enc * 1e3
+    e2e["ingest_docs_per_s_1024"] = rates
     log("  breakdown " + json.dumps(results["breakdown"]))
 
 
@@ -770,6 +843,7 @@ def path_a(results, emb, docs, vocab):
     import numpy as np
     import torch
 
+    from archi_tpu_torch import native
     from archi_tpu_torch.bin.bootstrap import build_index
     from archi_tpu_torch.engine import topk as engine_topk
     from archi_tpu_torch.engine.ann_index import AnnFlatIndex
@@ -794,6 +868,7 @@ def path_a(results, emb, docs, vocab):
     # ---- the path, counted
     engine_topk.FUSED_FALLBACKS["count"] = 0
     reset_launches()
+    native.reset_routes()
     t0 = time.perf_counter()
     doc_ids = store.add_texts(
         docs, metadatas=[{"kind": "even" if i % 2 == 0 else "odd"}
@@ -805,7 +880,10 @@ def path_a(results, emb, docs, vocab):
     out["fill_s"] = time.perf_counter() - t0
     out["rows"], out["capacity"] = store.count(), index.capacity
     log(f"  ingested {PATH_DOCS} documents and filled to {store.count()} "
-        f"rows in {out['fill_s']:.1f} s (capacity {index.capacity})")
+        f"rows in {out['fill_s']:.1f} s (capacity {index.capacity}; text "
+        f"routes {native.ROUTES})")
+    results["text_routes"]["path_a_fill"] = dict(native.ROUTES)
+    check_native_routes("path A fill", native.ROUTES)
     check(store.count() == PATH_ROWS, "path A fill")
     t0 = time.perf_counter()
     index.refresh_ann()
@@ -1022,54 +1100,14 @@ def path_b(results, index_a, corpus):
 
 
 # ------------------------------------------------------------------ phase 7
-def save_hf_snapshot(emb, directory: str) -> None:
-    """Write a ``TorchEmbedder`` as a local HF snapshot: ``config.json``,
-    ``vocab.txt`` and ``pytorch_model.bin`` under the names
-    ``hf_loader.params_from_state_dict`` reads (linear weights as the
-    encoder holds them, upcast to f32)."""
-    import torch
-
-    os.makedirs(directory, exist_ok=True)
-    c, m = emb.config, emb.model
-    with open(os.path.join(directory, "config.json"), "w") as f:
-        json.dump({"vocab_size": c.vocab_size, "hidden_size": c.hidden_size,
-                   "num_hidden_layers": c.num_layers,
-                   "num_attention_heads": c.num_heads,
-                   "intermediate_size": c.intermediate_size,
-                   "max_position_embeddings": c.max_position_embeddings,
-                   "type_vocab_size": c.type_vocab_size,
-                   "layer_norm_eps": c.layer_norm_eps}, f)
-    emb.tokenizer.save_vocab(os.path.join(directory, "vocab.txt"))
-    sd = {"embeddings.word_embeddings.weight": m.word.weight,
-          "embeddings.position_embeddings.weight": m.position.weight,
-          "embeddings.token_type_embeddings.weight": m.token_type.weight,
-          "embeddings.LayerNorm.weight": m.emb_ln.weight,
-          "embeddings.LayerNorm.bias": m.emb_ln.bias}
-    h = c.hidden_size
-    for i, layer in enumerate(m.layers):
-        p = f"encoder.layer.{i}."
-        for j, name in enumerate(("query", "key", "value")):
-            sd[p + f"attention.self.{name}.weight"] = \
-                layer.qkv.weight[j * h:(j + 1) * h]
-            sd[p + f"attention.self.{name}.bias"] = \
-                layer.qkv.bias[j * h:(j + 1) * h]
-        for hf, mod in (("attention.output.dense", layer.o),
-                        ("attention.output.LayerNorm", layer.attn_ln),
-                        ("intermediate.dense", layer.ffn_i),
-                        ("output.dense", layer.ffn_o),
-                        ("output.LayerNorm", layer.ffn_ln)):
-            sd[p + hf + ".weight"] = mod.weight
-            sd[p + hf + ".bias"] = mod.bias
-    torch.save({k: v.detach().float().cpu().contiguous()
-                for k, v in sd.items()},
-               os.path.join(directory, "pytorch_model.bin"))
-
-
 def write_service_checkpoint(results, store, emb) -> None:
     """Phase 7's inputs: phase 3's encoder as a local HF snapshot and its
     store as ``<data>/engine_checkpoint`` under ``SERVICE_TMP``."""
+    from archi_tpu_torch.models.train_encoder import save_model_dir
+
     shutil.rmtree(SERVICE_TMP, ignore_errors=True)
-    save_hf_snapshot(emb, os.path.join(SERVICE_TMP, "model"))
+    save_model_dir(os.path.join(SERVICE_TMP, "model"), emb.config, emb.model,
+                   emb.tokenizer)
     t0 = time.perf_counter()
     store.save(os.path.join(SERVICE_TMP, "data", "engine_checkpoint"))
     results["service"] = {"rows": store.count(),
@@ -1468,6 +1506,200 @@ def service_xl(results, vocab):
     return {"service_xl": (launches, routes)}
 
 
+# ------------------------------------------------------------------ phase 8
+def query_views(rng, docs):
+    """A keyword view of each document, as the trainer's ICT views are
+    made: about 40% of its words in order, without the document's id."""
+    views = []
+    for d in docs:
+        words = d.split()[1:]
+        keep = rng.random(len(words)) < 0.4
+        views.append(" ".join(w for w, k in zip(words, keep) if k))
+    return views
+
+
+def max_rel_err(got, want) -> float:
+    """max |got - want| over max |want|, of one tensor."""
+    return float((got - want).abs().max() / want.abs().max().clamp(
+        min=1e-30))
+
+
+def attention_train_ms(config) -> float:
+    """CUDA-event time of ``differentiable_attention``'s forward and
+    backward at one training layer's shape (B=64, S=96, bf16)."""
+    import torch
+
+    from archi_tpu_torch.ops.attention import differentiable_attention
+
+    b, s, nh = TRAIN_BATCH, TRAIN_SEQ, config.num_heads
+    h = config.hidden_size
+    g = torch.Generator(device="cuda").manual_seed(SEED + 9)
+    qkv = torch.randn(b, s, 3 * h, device="cuda", generator=g).to(
+        torch.bfloat16).requires_grad_(True)
+    q, k, v = (qkv[..., i * h:(i + 1) * h].view(b, s, nh, h // nh)
+               for i in range(3))
+    key_bias = torch.zeros(b, s, device="cuda")
+    grad = torch.randn(b, s, nh, h // nh, device="cuda", generator=g).to(
+        torch.bfloat16)
+
+    def step():
+        out = differentiable_attention(q, k, v, key_bias,
+                                       sm_scale=(h // nh) ** -0.5)
+        torch.autograd.grad(out, qkv, grad)
+    return cuda_ms(step, iters=20, warmup=3)
+
+
+def training(results, docs):
+    """Phase 8: the trainer at MiniLM-L6's widths (H=384, 6 layers, 12
+    heads, intermediate 1536) over phase 3's first 1024 documents, a
+    corpus vocabulary of 8192, batch 64, seq_len 96, 100 steps, seed 0.
+    → launches by part."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from archi_tpu_torch import native
+    from archi_tpu_torch.bin.bootstrap import build_vectorstore
+    from archi_tpu_torch.engine.vectorstore import TorchVectorStore
+    from archi_tpu_torch.models import train_encoder as te
+    from archi_tpu_torch.models.bert import BertConfig, BertEncoder, init_params
+    from archi_tpu_torch.models.embedder import TorchEmbedder
+    from archi_tpu_torch.models.hf_loader import params_from_jax
+    from archi_tpu_torch.models.tokenizer import WordPieceTokenizer
+    from archi_tpu_torch.ops import LAUNCHES, ROUTE_LAUNCHES, reset_launches
+
+    texts = docs[:TRAIN_DOCS]
+    config = dataclasses.replace(
+        BertConfig.minilm_l6(), vocab_size=TRAIN_VOCAB,
+        hidden_size=TRAIN_HIDDEN, num_layers=TRAIN_LAYERS,
+        num_heads=TRAIN_HEADS, intermediate_size=4 * TRAIN_HIDDEN)
+    out = {"config": dataclasses.asdict(config), "docs": len(texts),
+           "batch": TRAIN_BATCH, "seq_len": TRAIN_SEQ, "steps": TRAIN_STEPS}
+
+    # ---- step 0 at f32: the card against the CPU on the same batch (the
+    # comparison's launches are not the phase's)
+    t0 = time.perf_counter()
+    tok = WordPieceTokenizer.build_vocab(texts, size=TRAIN_VOCAB)
+    check(tok.vocab_size <= TRAIN_VOCAB, "train: vocabulary too large")
+    first = next(te.batches(texts, tok, np.random.default_rng(SEED),
+                            steps=1, batch=TRAIN_BATCH, seq_len=TRAIN_SEQ))
+    state = params_from_jax(init_params(config, seed=SEED))
+    step0 = {}
+    for dev in ("cpu", DEV):
+        model = BertEncoder.for_training(config, state, device=dev,
+                                         compute_dtype=torch.float32)
+        loss = te.contrastive_loss(model, *te.to_batch(*first, device=dev),
+                                   tau=0.05)
+        loss.backward()
+        step0[dev] = (loss.item(), {n: p.grad.detach().cpu()
+                                    for n, p in model.named_parameters()})
+        del model, loss
+    (l_cpu, g_cpu), (l_dev, g_dev) = step0["cpu"], step0[DEV]
+    out["step0_loss_f32"] = {"cpu": l_cpu, "card": l_dev}
+    out["step0_loss_rel_err"] = abs(l_dev - l_cpu) / abs(l_cpu)
+    out["step0_grad_max_rel_err"] = max(max_rel_err(g_dev[n], g_cpu[n])
+                                        for n in g_cpu)
+    out["step0_check_s"] = time.perf_counter() - t0
+    del step0, g_cpu, g_dev, state
+    log(f"  step 0 at f32: loss {l_dev:.6f} on the card, {l_cpu:.6f} on the "
+        f"CPU (rel. err {out['step0_loss_rel_err']:.2e}); gradients within "
+        f"{out['step0_grad_max_rel_err']:.2e} of the CPU's (relative to each "
+        f"tensor's largest; limit 1e-4)")
+    check(out["step0_loss_rel_err"] <= 1e-4
+          and out["step0_grad_max_rel_err"] <= 1e-4,
+          f"train: step 0 on the card differs from the CPU {out}")
+
+    # ---- 100 steps in bf16, counted
+    reset_launches()
+    native.reset_routes()
+    if DEV == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    stamps, losses = [], []
+
+    def stamp(_line):
+        stamps.append(time.perf_counter())
+
+    t0 = time.perf_counter()
+    config, model, tok = te.train(
+        texts, config=config, vocab_size=TRAIN_VOCAB, steps=TRAIN_STEPS,
+        batch=TRAIN_BATCH, seq_len=TRAIN_SEQ, seed=SEED, device=DEV,
+        log_every=10, log=stamp, losses=losses)
+    sync()
+    out["train_s"] = time.perf_counter() - t0
+    launches, routes = dict(LAUNCHES), dict(ROUTE_LAUNCHES)
+    text_routes = dict(native.ROUTES)
+    # logs at steps 0, 10, ..., 90 and 99 (each reads the loss: a sync)
+    out["steps_per_s"] = (TRAIN_STEPS - 1 - 10) / (stamps[-1] - stamps[1])
+    out["peak_memory_gib"] = (torch.cuda.max_memory_allocated() / 2 ** 30
+                              if DEV == "cuda" else None)
+    out["loss_every_10"] = losses[::10] + [losses[-1]]
+    first10, last10 = np.mean(losses[:10]), np.mean(losses[-10:])
+    out["loss_first10_mean"], out["loss_last10_mean"] = first10, last10
+    log(f"  {TRAIN_STEPS} bf16 steps in {out['train_s']:.1f} s "
+        f"({out['steps_per_s']:.2f} steps/s from step 10 to 99), peak "
+        f"memory {out['peak_memory_gib']} GiB; loss every 10 steps "
+        f"{[round(x, 4) for x in out['loss_every_10']]}")
+    log(f"  train launches {launches}, routes {routes}, text routes "
+        f"{text_routes}")
+    check(all(np.isfinite(losses)) and last10 < first10,
+          f"train: the loss did not fall ({first10:.4f} -> {last10:.4f})")
+    if DEV == "cuda":
+        # attention's share of a step: its forward (the kernel) and its
+        # backward (the plain version's autograd) at one layer's shape,
+        # run 2 towers x 6 layers times a step
+        out["attention_fwd_bwd_ms"] = attention_train_ms(config)
+        out["attention_share_of_step"] = (
+            2 * config.num_layers * out["attention_fwd_bwd_ms"]
+            * out["steps_per_s"] / 1e3)
+        log(f"  attention forward + backward at the step's shape "
+            f"{out['attention_fwd_bwd_ms']:.3f} ms, "
+            f"{out['attention_share_of_step']:.1%} of a step")
+    check_routes("train", launches, routes, ("encoder_attention",))
+    check_native_routes("train", text_routes)
+    results["text_routes"]["train"] = text_routes
+    parts = {"train": (launches, routes)}
+
+    # ---- the export served: build_vectorstore over the snapshot
+    shutil.rmtree(TRAIN_TMP, ignore_errors=True)
+    model_dir = os.path.join(TRAIN_TMP, "model")
+    te.save_model_dir(model_dir, config, model, tok)
+    del model
+    rng = np.random.default_rng(SEED + 8)
+    probes = list(range(0, TRAIN_DOCS, TRAIN_DOCS // TRAIN_PROBES))
+    views = query_views(rng, [texts[i] for i in probes])
+    reset_launches()
+    store = build_vectorstore(
+        {"embedding_name": "minilm", "model_dir": model_dir,
+         "data_path": os.path.join(TRAIN_TMP, "data"), "index": {}},
+        device=DEV)
+    check(store._embedding_function.config == config,
+          "train: the snapshot loads another configuration")
+    doc_ids = store.add_texts(texts)
+    found = store.similarity_search_batch(views, k=10)
+    sync()
+    parts["train_store"] = (dict(LAUNCHES), dict(ROUTE_LAUNCHES))
+    check_routes("train_store", *parts["train_store"])
+    hits = [ids_of(r)[:1] == [doc_ids[i]] for r, i in zip(found, probes)]
+    out["rank1_trained"] = float(np.mean(hits))
+    # the same views through the untrained weights (training's start)
+    untrained = TorchVectorStore(TorchEmbedder(
+        config=config, tokenizer=tok, seed=SEED, device=DEV), device=DEV)
+    base_ids = untrained.add_texts(texts)
+    base = untrained.similarity_search_batch(views, k=10)
+    out["rank1_untrained"] = float(np.mean(
+        [ids_of(r)[:1] == [base_ids[i]] for r, i in zip(base, probes)]))
+    log(f"  the export through build_vectorstore: {TRAIN_PROBES} query views "
+        f"find their document at rank 1 {out['rank1_trained']:.3f} of the "
+        f"time (untrained weights {out['rank1_untrained']:.3f}; limit 0.75)")
+    check(out["rank1_trained"] >= 0.75,
+          f"train: rank-1 {out['rank1_trained']:.3f} < 0.75")
+    shutil.rmtree(TRAIN_TMP, ignore_errors=True)
+    results["train"] = out
+    log("  " + json.dumps(out))
+    return parts
+
+
 def main() -> int:
     import torch
 
@@ -1482,7 +1714,17 @@ def main() -> int:
     card = card_line()
     log(card)
     log("phase 1: build")
+    from archi_tpu_torch import native
+
+    t0 = time.perf_counter()
+    analyzer = threading.Thread(target=native.load_library)
+    analyzer.start()
     secs = _build.build()
+    analyzer.join()
+    check(native.load_library() is not None,
+          "the native text analyzer did not build or load")
+    log(f"  native text analyzer {native.lib_path()} ready "
+        f"{time.perf_counter() - t0:.1f} s after the build started")
     ptxas = {name: kernel_resources(out)
              for name, out in sorted(_build.BUILD_LOGS.items())}
     for name, kernels in ptxas.items():
@@ -1581,6 +1823,13 @@ def main() -> int:
         parts.update(service_xl(results, vocab))
     finally:
         shutil.rmtree(SERVICE_TMP, ignore_errors=True)
+    torch.cuda.empty_cache()
+
+    log("phase 8: the trainer at MiniLM-L6 width, its export served")
+    try:
+        parts.update(training(results, docs))
+    finally:
+        shutil.rmtree(TRAIN_TMP, ignore_errors=True)
     # each path and part ran with the counts set to 0 just before it
     results["launches"] = {"main": launches, "path_a": launches_a,
                            "path_b": launches_b}

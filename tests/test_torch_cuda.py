@@ -383,6 +383,102 @@ def test_encoder_on_card_matches_cpu(dev):
     torch.testing.assert_close(outs[1], outs[0], rtol=1e-4, atol=1e-5)
 
 
+# ------------------------------------------------------------- training
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_attention_function_runs_the_kernel_forward_and_plain_gradient(
+        dev, dtype):
+    """``differentiable_attention`` under autograd: the forward is the
+    kernel (one launch on the dtype's route, within the forward tests'
+    tolerance of the plain version), the gradient is the plain version's
+    autograd gradient."""
+    from archi_tpu_torch.ops import ROUTE_LAUNCHES, reset_launches
+    from archi_tpu_torch.ops.attention import (differentiable_attention,
+                                               p_rounding_bound)
+
+    b, s, nh, hd = 8, 96, 12, 32
+    h = nh * hd
+    g = torch.Generator(device="cpu").manual_seed(5)
+    base = torch.randn(b, s, 3 * h, generator=g)
+    grad_out = torch.randn(b, s, nh, hd, generator=g).to(dev, dtype)
+    mask = torch.ones(b, s)
+    mask[1, 40:] = 0
+    mask[5, 7:] = 0
+    key_bias = ((1.0 - mask) * -1e9).to(dev)
+
+    def views():
+        qkv = base.to(dev, dtype).requires_grad_(True)
+        return qkv, [qkv[..., i * h:(i + 1) * h].view(b, s, nh, hd)
+                     for i in range(3)]
+
+    qkv, (q, k, v) = views()
+    reset_launches()
+    out = differentiable_attention(q, k, v, key_bias, sm_scale=hd ** -0.5)
+    route = "tensor_core" if dtype == torch.bfloat16 else "cuda_core"
+    assert ROUTE_LAUNCHES[f"encoder_attention:{route}"] == 1
+    (got,) = torch.autograd.grad(out, qkv, grad_out)
+    qkv2, (q2, k2, v2) = views()
+    ref = plain_attention(q2, k2, v2, key_bias, sm_scale=hd ** -0.5)
+    (want,) = torch.autograd.grad(ref, qkv2, grad_out)
+    torch.cuda.synchronize()
+    diff = (out.float() - ref.float()).abs()
+    if dtype == torch.bfloat16:
+        bound = p_rounding_bound(q2.detach(), k2.detach(), v2.detach(),
+                                 key_bias, sm_scale=hd ** -0.5)
+        assert bool((diff <= ref.float().abs() * 2.0 ** -7 + 1e-3
+                     + bound).all())
+    else:
+        assert float(diff.max()) <= 2e-5
+    torch.testing.assert_close(got, want)
+
+
+def test_training_step_on_card_matches_cpu_at_f32(dev):
+    """One ``train_step`` at f32 from the same weights and batch: the loss
+    within 1e-4 relative of the CPU's, each gradient within 1e-4 of the
+    CPU's largest entry of that tensor."""
+    from archi_tpu_torch.models import train_encoder as te
+    from archi_tpu_torch.models.bert import BertConfig, BertEncoder, init_params
+    from archi_tpu_torch.models.hf_loader import params_from_jax
+
+    cfg = BertConfig(vocab_size=300, hidden_size=64, num_layers=2, num_heads=2,
+                     intermediate_size=128, max_position_embeddings=128)
+    state = params_from_jax(init_params(cfg, seed=3))
+    rng = np.random.default_rng(0)
+    lists = [[2, *rng.integers(5, 300, int(n)), 3]
+             for n in rng.integers(3, 60, 16)]
+    batch = (*te._pad(lists[:8], 64), *te._pad(lists[8:], 64))
+    outs = {}
+    for device in ("cpu", dev):
+        model = BertEncoder.for_training(cfg, state, device=device)
+        opt = te.make_optimizer(model, 3e-4)
+        loss = te.train_step(model, opt, te.to_batch(*batch, device=device),
+                             tau=0.05, lr=3e-4)
+        outs[str(device)] = (loss.item(), {n: p.grad.cpu() for n, p in
+                                           model.named_parameters()})
+    (l_cpu, g_cpu), (l_dev, g_dev) = outs["cpu"], outs["cuda"]
+    assert abs(l_dev - l_cpu) <= 1e-4 * abs(l_cpu)
+    for name, want in g_cpu.items():
+        err = float((g_dev[name] - want).abs().max())
+        assert err <= 1e-4 * float(want.abs().max()), name
+
+
+def test_native_analyzer_builds_on_the_card_machine(dev):
+    """The card's machine builds and loads the native text analyzer, and
+    its routes agree."""
+    from archi_tpu_torch import native
+    from archi_tpu_torch.engine.bm25 import STOPWORDS, analyze
+    from archi_tpu_torch.models.tokenizer import WordPieceTokenizer
+
+    assert native.load_library() is not None
+    text = "Running the GPU partitions: quotas of 100GB, café naïve!"
+    assert analyze(text) == analyze(text, stopwords=set(STOPWORDS)) == [
+        "running", "gpu", "partitions", "quotas", "100gb", "cafe", "naive"]
+    tok = WordPieceTokenizer.build_vocab([text], size=200)
+    python = WordPieceTokenizer(dict(tok.vocab))
+    python._native = None
+    assert tok._native_encoder() is not None
+    assert tok.encode(text, 16) == python.encode(text, 16)
+
+
 # ------------------------------------------------------------------ ADC
 def _adc_case(dev, m, g, s, ksub, seed):
     rng = np.random.default_rng(seed)

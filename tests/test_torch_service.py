@@ -9,20 +9,37 @@ data-manager app.  For flat, hot_tail, ivf and ivfpq_xl, concurrent HTTP
 queries coalesce (the port's METRICS: mean batch > 1), batched results
 equal an unbatched port stack, and for flat and hot_tail they also equal
 the JAX stack by score level (4 decimals, as the reference test compares).
+
+The two wirings a service over the port's store needs: with the service's
+registry handed to the port (``use_registry``), ``GET /metrics`` shows the
+engine's and the scheduler's counters; with ``rerank.enabled``, a pipeline
+wrapped by ``attach_reranker`` returns the JAX stack's k reranked documents
+(``build_vectorstore`` logs an error until then).
 """
 
+import re
 import threading
 
+import jax.numpy as jnp
+import numpy as np
 import pytest
 import requests
 
 from archi_tpu.bin.bootstrap import build_context
 from archi_tpu.bin.service_data_manager import build_app as build_data
-from archi_tpu_torch.bin.bootstrap import build_vectorstore
+from archi_tpu.engine.vectorstore import TpuVectorStore
+from archi_tpu.models.bert import BertConfig as JaxConfig
+from archi_tpu.models.bert import init_params
+from archi_tpu.models.embedder import JaxEmbedder
+from archi_tpu.models.tokenizer import WordPieceTokenizer as JaxTokenizer
+from archi_tpu.models.train_encoder import save_model_dir
+from archi_tpu.pipelines.qa import QAPipeline
+from archi_tpu.utils.metrics import METRICS as SERVICE_METRICS
+from archi_tpu_torch.bin.bootstrap import attach_reranker, build_vectorstore
 from archi_tpu_torch.engine.ann_index import AnnFlatIndex
 from archi_tpu_torch.engine.segmented_index import SegmentedFlatIndex
 from archi_tpu_torch.engine.xl_index import XlPQIndex
-from archi_tpu_torch.utils.metrics import METRICS
+from archi_tpu_torch.utils.metrics import METRICS, use_registry
 
 INDEX_CONFIGS = {
     "flat": {},
@@ -160,3 +177,178 @@ def test_batched_results_match_unbatched_and_jax_stacks(stacks):
         _assert_same_levels(rb, _query(url_p, q), q)
         if "jax" in stacks:
             _assert_same_levels(rb, _query(stacks["jax"][1], q), q)
+
+
+# ------------------------------------------------ /metrics over the port
+@pytest.fixture
+def service_registry():
+    """The data-manager app renders the JAX package's registry: hand it to
+    the port for the test, then give the port its own back."""
+    previous = use_registry(SERVICE_METRICS)
+    yield SERVICE_METRICS
+    use_registry(previous)
+
+
+def _scrape(url) -> dict:
+    r = requests.get(f"{url}/metrics", timeout=30)
+    r.raise_for_status()
+    out = {}
+    for line in r.text.splitlines():
+        m = re.match(r"^(\S+) (\S+)$", line)
+        if m:
+            out[m.group(1)] = float(m.group(2))
+    return out
+
+
+# the names as the registry renders counters (a "_total" suffix on each)
+SERIES = ("archi_micro_batches_total_total",
+          "archi_micro_batched_requests_total_total",
+          'archi_engine_queries_total{kind="hybrid"}')
+
+
+def test_metrics_endpoint_shows_the_port_counters(stacks, service_registry):
+    _ctx, url = stacks["batched"]
+    before = _scrape(url)
+    queries = ["batch schedulers", "storage quotas", "topic3 cluster",
+               "document about topic1"] * 3
+    threads = [threading.Thread(target=_query, args=(url, q))
+               for q in queries]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=60)
+    after = _scrape(url)
+    rose = {k: after.get(k, 0.0) - before.get(k, 0.0) for k in SERIES}
+    assert rose['archi_engine_queries_total{kind="hybrid"}'] >= len(queries)
+    assert rose["archi_micro_batched_requests_total_total"] >= len(queries)
+    assert 0 < rose["archi_micro_batches_total_total"] \
+        < rose["archi_micro_batched_requests_total_total"]
+    # the port's METRICS reads the registry in use
+    assert METRICS.counter_value("archi_micro_batches_total") == \
+        SERVICE_METRICS.counter_value("archi_micro_batches_total")
+
+
+def test_use_registry_switches_modules_that_bound_metrics_at_import():
+    from archi_tpu_torch.engine import batcher, vectorstore
+    from archi_tpu_torch.utils.metrics import MetricsRegistry
+
+    mine = MetricsRegistry()
+    previous = use_registry(mine)
+    try:
+        vectorstore.METRICS.inc("archi_engine_queries",
+                                labels={"kind": "hybrid"})
+        batcher.METRICS.inc("archi_micro_batches_total")
+    finally:
+        assert use_registry(previous) is mine
+    assert mine.counter_value("archi_engine_queries",
+                              {"kind": "hybrid"}) == 1.0
+    assert mine.counter_value("archi_micro_batches_total") == 1.0
+    assert METRICS.target is previous
+
+
+# ------------------------------------------- rerank over the port's store
+RERANK_DOCS = [
+    f"{topic} note {i}: {detail}"
+    for i, (topic, detail) in enumerate(
+        (t, d) for t in ("slurm batch jobs", "eos storage quota",
+                         "grafana dashboards", "xrootd transfers")
+        for d in ("failed with a timeout", "needs an admin approval",
+                  "is documented in the wiki", "was fixed last week",
+                  "returns an error code"))]
+RERANK_QUERIES = ["slurm jobs timeout", "storage quota approval",
+                  "grafana wiki", "xrootd error code", "batch admin"]
+
+
+def _rerank_cfg(model_dir, tmp):
+    return {"embedding_name": "minilm", "model_dir": str(model_dir),
+            "data_path": str(tmp / "data"),
+            "retrievers": {"hybrid_retriever": {
+                "num_documents_to_retrieve": 3,
+                "rerank": {"enabled": True, "overfetch": 12}}}}
+
+
+@pytest.fixture(scope="module")
+def rerank_stores(tmp_path_factory):
+    """The same random weights (a local HF snapshot) under the JAX store
+    (f32, XLA attention) and the port's store built by
+    ``build_vectorstore`` on the CPU, the same documents in both."""
+    tmp = tmp_path_factory.mktemp("rerank")
+    cfg = JaxConfig(vocab_size=400, hidden_size=64, num_layers=2,
+                    num_heads=2, intermediate_size=128,
+                    max_position_embeddings=128)
+    tok = JaxTokenizer.build_vocab(RERANK_DOCS + RERANK_QUERIES, size=400)
+    save_model_dir(str(tmp / "model"), cfg, init_params(cfg, seed=4), tok)
+    dm = _rerank_cfg(tmp / "model", tmp)
+    jax_store = TpuVectorStore(JaxEmbedder(
+        model_dir=str(tmp / "model"), compute_dtype=jnp.float32,
+        attention_impl="xla"))
+    port_store = build_vectorstore(dm, device="cpu")
+    metas = [{"chunk_id": f"c{i}"} for i in range(len(RERANK_DOCS))]
+    for store in (jax_store, port_store):
+        store.add_texts(RERANK_DOCS, metadatas=metas)
+    return dm, jax_store, port_store
+
+
+def _ranked(retriever, q):
+    return [(d.page_content, s) for d, s in retriever.invoke(q)]
+
+
+def test_rerank_pipeline_over_the_port_matches_the_jax_stack(rerank_stores):
+    dm, jax_store, port_store = rerank_stores
+    config = {"data_manager": dm}
+    jax_pipe = QAPipeline(config)
+    jax_pipe.update_retriever(jax_store)
+    plain = QAPipeline(config)
+    plain.update_retriever(port_store)
+    port_pipe = QAPipeline(config)
+    assert attach_reranker(port_pipe)
+    port_pipe.update_retriever(port_store)
+    assert type(jax_pipe.retriever).__name__ == "RerankingRetriever"
+    for q in RERANK_QUERIES:
+        want = _ranked(jax_pipe.retriever, q)
+        got = _ranked(port_pipe.retriever, q)
+        assert len(want) == len(got) == 3, q
+        assert [d for d, _ in got] == [d for d, _ in want], q
+        np.testing.assert_allclose([s for _, s in got], [s for _, s in want],
+                                   atol=1e-4)
+        # without the helper the JAX pipeline skips the rerank over the
+        # port's store and returns the whole over-fetched pool
+        assert len(_ranked(plain.retriever, q)) == 12
+    # the orchestrator passes the store on every call: update_retriever
+    # runs again and the rerank stays
+    out = port_pipe.invoke(vectorstore=port_store,
+                           history=[("user", RERANK_QUERIES[0])])
+    want = jax_pipe.invoke(vectorstore=jax_store,
+                           history=[("user", RERANK_QUERIES[0])])
+    assert [d.page_content for d in out.source_documents] == \
+        [d.page_content for d in want.source_documents]
+    assert len(out.source_documents) == 3
+
+
+def test_attach_reranker_wraps_a_built_retriever_once(rerank_stores):
+    dm, _jax_store, port_store = rerank_stores
+    pipe = QAPipeline({"data_manager": dm})
+    pipe.update_retriever(port_store)
+    assert attach_reranker(pipe)
+    wrapped = pipe.retriever
+    assert wrapped.k == 3 and wrapped.base.k == 12
+    assert type(wrapped.reranker).__module__ == \
+        "archi_tpu_torch.engine.reranker"
+    pipe.update_retriever(port_store)
+    assert pipe.retriever.base.k == 12        # one wrap, not two
+    off = QAPipeline({"data_manager": {"retrievers": {}}})
+    assert not attach_reranker(off)
+
+
+def test_build_vectorstore_logs_when_rerank_is_enabled(caplog, tmp_path):
+    dm = {"embedding_name": "hash", "data_path": str(tmp_path / "data"),
+          "retrievers": {"hybrid_retriever": {"rerank": {"enabled": True}}}}
+    with caplog.at_level("ERROR", logger="archi_tpu_torch.bin.bootstrap"):
+        build_vectorstore(dm, device="cpu")
+    assert any("attach_reranker" in r.getMessage() and r.levelname == "ERROR"
+               for r in caplog.records)
+    caplog.clear()
+    dm["retrievers"]["hybrid_retriever"]["rerank"]["enabled"] = False
+    with caplog.at_level("ERROR", logger="archi_tpu_torch.bin.bootstrap"):
+        build_vectorstore(dm, device="cpu")
+    assert not caplog.records
