@@ -30,11 +30,16 @@ from __future__ import annotations
 import logging
 import os
 
+import torch
+
 from archi_tpu_torch.engine.ann_index import AnnFlatIndex
 from archi_tpu_torch.engine.bm25 import BM25Index
+from archi_tpu_torch.engine.distributed import data_mesh
 from archi_tpu_torch.engine.flat_index import FlatIndex
 from archi_tpu_torch.engine.reranker import MaxSimReranker, RerankingRetriever
 from archi_tpu_torch.engine.segmented_index import SegmentedFlatIndex
+from archi_tpu_torch.engine.sharded_index import ShardedFlatIndex
+from archi_tpu_torch.engine.sharded_xl import ShardedXlPQIndex
 from archi_tpu_torch.engine.vectorstore import TorchVectorStore
 from archi_tpu_torch.engine.xl_index import XlPQIndex
 from archi_tpu_torch.models.registry import resolve_embedder
@@ -43,25 +48,58 @@ from archi_tpu_torch.utils.hardware import default_device
 _logger = logging.getLogger(__name__)
 
 
-def build_index(dim: int, index_cfg: dict, *, device=None):
+def shard_devices(devices=None, device=None) -> list:
+    """The shard devices of the multi-device types: ``devices`` when given;
+    else ``[device]`` for a non-CUDA ``device`` (``"cpu"``); else every
+    visible CUDA device (raising without CUDA)."""
+    if devices is not None:
+        return list(devices)
+    if device is not None and torch.device(device).type != "cuda":
+        return [device]
+    return data_mesh()
+
+
+def build_index(dim: int, index_cfg: dict, *, device=None, devices=None):
     """data_manager.index config → index instance, with the JAX package's
     defaults.
 
-    type: "flat" (default) | "ivf" (IVF snapshot + exact fresh-row tail,
-    engine/ann_index.py) | "ivfpq" (the same with a PQ-compressed snapshot)
-    | "ivfpq_xl" (host plane + PQ snapshot + exact tail,
-    engine/xl_index.py).  hot_tail: wrap appends in the segmented hot-tail
-    path (engine/segmented_index.py).  The multi-device types ("sharded",
-    "ivfpq_xl_sharded") are not ported yet.
+    type: "flat" (default) | "sharded" (corpus rows over ``devices``,
+    per-shard fused top-k + merge, engine/sharded_index.py) | "ivf" (IVF
+    snapshot + exact fresh-row tail, engine/ann_index.py) | "ivfpq" (the
+    same with a PQ-compressed snapshot) | "ivfpq_xl" (host plane + PQ
+    snapshot + exact tail, engine/xl_index.py) | "ivfpq_xl_sharded" (one
+    XL index a device, engine/sharded_xl.py).  hot_tail: wrap appends in
+    the segmented hot-tail path (engine/segmented_index.py).  ``devices``:
+    the shard devices of the multi-device types (see ``shard_devices``; a
+    device may repeat).
     """
-    device = default_device(device)
-    kw = dict(dtype=index_cfg.get("dtype", "bfloat16"),
-              tile_n=index_cfg.get("tile_n", 4096), device=device)
     index_type = index_cfg.get("type", "flat")
-    if index_type in ("sharded", "ivfpq_xl_sharded"):
-        raise NotImplementedError(
-            f"index type {index_type!r} needs the multi-device tier, which "
-            "the port does not have yet (ROADMAP.md, queue A, item 15)")
+    kw = dict(dtype=index_cfg.get("dtype", "bfloat16"),
+              tile_n=index_cfg.get("tile_n", 4096))
+    if index_type == "sharded":
+        return ShardedFlatIndex(dim, devices=shard_devices(devices, device),
+                                **kw)
+    if index_type == "ivfpq_xl_sharded":
+        # one XlPQIndex a device, per-shard host memmap rerank tier, global
+        # merge
+        return ShardedXlPQIndex(
+            dim,
+            devices=shard_devices(devices, device),
+            store_dir=index_cfg.get("store_dir"),
+            nlist=index_cfg.get("nlist", 4096),
+            block=index_cfg.get("block", 512),
+            pq_m=index_cfg.get("pq_m", 48),
+            pq_refine_m=index_cfg.get("pq_refine_m", 48),
+            nprobe_blocks=index_cfg.get("nprobe_blocks") or 128,
+            cell_gate=index_cfg.get("cell_gate"),
+            block_rank_sub=index_cfg.get("block_rank_sub", 8),
+            extract=index_cfg.get("extract", "auto"),
+            hier_t=index_cfg.get("hier_t", 64),
+            rerank_overfetch=index_cfg.get("rerank_overfetch", 16),
+            min_snapshot_rows=index_cfg.get("min_snapshot_rows", 1 << 17),
+            build_block_rows=index_cfg.get("build_block_rows", 1 << 17),
+            **kw)
+    kw["device"] = default_device(device)
     if index_type == "ivfpq_xl":
         return XlPQIndex(
             dim,
@@ -122,9 +160,10 @@ def _restore(checkpoint_dir: str, embedder, index_cfg: dict, device):
                 device=device)
     elif index_cfg.get("hot_tail"):
         index_cls = SegmentedFlatIndex
-    # every other type (ivfpq_xl included) restores through FlatIndex.load,
-    # as the JAX package does; an XL checkpoint has no FlatIndex meta, so it
-    # raises and the caller builds afresh
+    # every other type restores through FlatIndex.load, as the JAX package
+    # does: a `sharded` checkpoint (FlatIndex's layout) comes back as a
+    # single-device FlatIndex; an XL checkpoint (sharded or not) has no
+    # FlatIndex meta, so it raises and the caller builds afresh
     return TorchVectorStore.load(checkpoint_dir, embedder, device=device,
                                  index_cls=index_cls,
                                  index_loader=index_loader)
@@ -173,17 +212,21 @@ def attach_reranker(pipeline, dm_cfg: dict | None = None) -> bool:
     return True
 
 
-def build_vectorstore(dm_cfg: dict, *, device=None) -> TorchVectorStore:
+def build_vectorstore(dm_cfg: dict, *, device=None,
+                      devices=None) -> TorchVectorStore:
     """data_manager config section → the port's ``TorchVectorStore``.
 
     Resolves the embedder through the port's registry, restores
     ``<data_path>/engine_checkpoint`` when it exists (a restore that fails
     is logged and the store is built afresh, as in the JAX package), and
     turns on ``serving.micro_batch`` with the reference's defaults
-    (max_batch 32, max_wait_ms 4.0, workers 2).  With
+    (max_batch 32, max_wait_ms 4.0, workers 2).  ``devices``: the shard
+    devices of the multi-device index types (``build_index``).  With
     ``retrievers.hybrid_retriever.rerank.enabled`` it logs an error: the
     JAX pipelines skip the rerank over this store unless the caller wraps
     them with ``attach_reranker``."""
+    if device is None and devices:
+        device = devices[0]
     device = default_device(device)
     if _rerank_settings(dm_cfg)[0]:
         _logger.error(
@@ -207,7 +250,8 @@ def build_vectorstore(dm_cfg: dict, *, device=None) -> TorchVectorStore:
         stemming = bool((dm_cfg.get("stemming") or {}).get("enabled"))
         store = TorchVectorStore(
             embedder,
-            index=build_index(embedder.dim, index_cfg, device=device),
+            index=build_index(embedder.dim, index_cfg, device=device,
+                              devices=devices),
             bm25=BM25Index(stemming=stemming, device=device),
             device=device)
     mb_cfg = (dm_cfg.get("serving") or {}).get("micro_batch") or {}

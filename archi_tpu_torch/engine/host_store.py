@@ -131,6 +131,22 @@ class HostVectorStore:
         self._write_meta()
         return rows
 
+    @classmethod
+    def view(cls, parent: "HostVectorStore", lo: int,
+             hi: int) -> "HostVectorStore":
+        """Zero-copy read-only window [lo, hi) over another store's rows:
+        shards a corpus plane across indexes without duplicating its file.
+        The view shares the parent's buffer (memmap or RAM); appends are
+        refused (they would clobber the parent's rows)."""
+        assert 0 <= lo <= hi <= len(parent), (lo, hi, len(parent))
+        v = cls(parent.dim, path=None, capacity=1024,
+                dtype=BF16 if parent.bf16 else parent.dtype)
+        v._buf = parent._buf[lo:hi]
+        v._n = hi - lo
+        v._cap = hi - lo
+        v.add = _refuse_append  # type: ignore[method-assign]
+        return v
+
     def get(self, rows) -> np.ndarray:
         """Gather rows (negative/dead ids → zero vectors) → [len, D] f32."""
         rows = np.asarray(rows, np.int64)
@@ -149,6 +165,11 @@ class HostVectorStore:
         if self.path is not None:
             self._buf.flush()
             self._write_meta()
+
+
+def _refuse_append(*_a, **_k):
+    raise RuntimeError("HostVectorStore.view is read-only: appending "
+                       "would clobber the parent store's rows")
 
 
 def mark_duplicate_rows(rows: np.ndarray) -> np.ndarray:

@@ -4,7 +4,11 @@ Counterpart of ``archi_tpu/models/embedder.py`` (``JaxEmbedder``): the
 LangChain ``Embeddings`` contract (``embed_documents`` / ``embed_query``)
 over the PyTorch encoder (``archi_tpu_torch.models.bert``).  Sequences are
 padded into the same (batch, seq) buckets, grouped by sequence bucket, and
-pad rows are fully masked.  Sharding over several devices is not ported yet.
+pad rows are fully masked.  With ``devices=`` the encode is data-parallel,
+the counterpart of the JAX embedder's ``mesh=``: one replica of the weights
+on each distinct device, each batch padded to a multiple of
+``len(devices)``, split in equal parts (part i on ``devices[i]``; a device
+may repeat) and the outputs concatenated in order.
 """
 
 from __future__ import annotations
@@ -39,6 +43,8 @@ class TorchEmbedder:
       config: explicit BertConfig override (ignored if model_dir loads).
       device: defaults to ``cuda`` (raises without CUDA); pass ``"cpu"``
         to run on the CPU.
+      devices: data-parallel encode over these devices (``device`` is
+        then the first); one device is the single-device embedder.
       compute_dtype: defaults to bf16 on the card, f32 elsewhere.
       instruction_prefix: prepended to queries only.
       seed: seed of the random weights when no snapshot loads.
@@ -51,13 +57,19 @@ class TorchEmbedder:
         tokenizer: WordPieceTokenizer | None = None,
         *,
         device=None,
+        devices=None,
         compute_dtype: torch.dtype | None = None,
         max_length: int = 256,
         instruction_prefix: str = "",
         pooling: str | None = None,
         seed: int = 0,
     ):
+        if devices is not None:
+            self.devices = [torch.device(d) for d in devices]
+            device = self.devices[0]
         self.device = default_device(device)
+        if devices is None:
+            self.devices = [self.device]
         if compute_dtype is None:
             compute_dtype = (torch.bfloat16 if self.device.type == "cuda"
                              else torch.float32)
@@ -68,6 +80,13 @@ class TorchEmbedder:
             model_dir, config, pooling=pooling, seed=seed)
         self.model = BertEncoder.from_state(
             self.config, state, device=self.device, compute_dtype=compute_dtype)
+        # one replica of the weights a distinct device
+        self._replicas = {self.device: self.model}
+        for dev in self.devices:
+            if dev not in self._replicas:
+                self._replicas[dev] = BertEncoder.from_state(
+                    self.config, state, device=dev,
+                    compute_dtype=compute_dtype)
         if tokenizer is not None:
             self.tokenizer = tokenizer
         elif vocab_path:
@@ -91,6 +110,9 @@ class TorchEmbedder:
         seq = _bucket_up(max(len(i) for i in id_lists), SEQ_BUCKETS)
         seq = min(seq, self.max_length)
         bsz = _bucket_up(len(id_lists), BATCH_BUCKETS)
+        n_dev = len(self.devices)
+        if n_dev > 1:
+            bsz = int(np.ceil(max(bsz, n_dev) / n_dev) * n_dev)
         ids = np.zeros((bsz, seq), np.int64)
         mask = np.zeros((bsz, seq), np.int64)
         for r, lst in enumerate(id_lists):
@@ -124,12 +146,20 @@ class TorchEmbedder:
         pending = []
         for group in groups:
             ids, mask = self._pad_batch([id_lists[g] for g in group])
-            pending.append((group, encode(
-                self.model, torch.from_numpy(ids).to(self.device),
-                torch.from_numpy(mask).to(self.device))))
+            pending.append((group, self._encode_split(ids, mask)))
         for group, emb in pending:
             out[np.asarray(group)] = emb[: len(group)].cpu().numpy()
         return out
+
+    def _encode_split(self, ids: np.ndarray, mask: np.ndarray):
+        """One padded batch → [bsz, H] on ``device``: part i of
+        ``len(devices)`` equal parts encoded on ``devices[i]``."""
+        per = ids.shape[0] // len(self.devices)
+        outs = [encode(self._replicas[dev],
+                       torch.from_numpy(ids[i * per:(i + 1) * per]).to(dev),
+                       torch.from_numpy(mask[i * per:(i + 1) * per]).to(dev))
+                for i, dev in enumerate(self.devices)]
+        return torch.cat([o.to(self.device) for o in outs])
 
     # ------------------------------------------------- Embeddings interface
     def embed_documents(self, texts: Sequence[str]) -> list[list[float]]:

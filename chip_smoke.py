@@ -56,14 +56,32 @@ Phases (each fails the run with a non-zero exit):
      CPU (loss and gradients, 1e-4 relative), 100 bf16 steps (the loss
      falls, every attention launch on the tensor cores), then the export
      served through ``build_vectorstore``: query views of 64 documents
-     find their document at rank 1 (at least 0.75).
+     find their document at rank 1 (at least 0.75);
+  9. the multi-device tier, four logical shards on the card: (a)
+     ``ShardedFlatIndex`` against one ``FlatIndex`` over 2^22 rows (3 GiB
+     of bf16 each), added in blocks across the seams, with tombstones and
+     a filter, at B=32 / 256 (shared bias) and B=32 (per-query bias), then
+     growth past the capacity (rows move shard): scores within 1e-6, rows
+     tie-aware; (b) a one-rank NCCL group from ``initialize_distributed``,
+     through which 9a's searches run ``all_gather`` and equal 9a's results
+     bit for bit; (c) ``ShardedIVFIndex`` and ``ShardedIVFPQIndex`` over
+     phase 5's clustered rows at path A's parameters, recall@10 at least
+     0.6; (d) ``type: ivfpq_xl_sharded`` through ``build_vectorstore`` at
+     the bootstrap's defaults over 7c's 2^20 clustered rows, 64 clients x
+     8 micro-batched hybrid requests equal to the direct path, recall@10
+     at least 0.9, scores within 1e-4 of the host rows, the profile split,
+     save/load and ``adopt_stores`` over ``HostVectorStore.view`` windows;
+     (e) the data-parallel encode (``TorchEmbedder(devices=...)``) against
+     one device (cosine at least 0.9999).
 
 Phase 2 also holds both ADC kernels against their plain versions at the
 shapes of paths A and B, and times them with the codes in L2, just
 rewritten (warm) and flushed from L2 (cold); phases 5 and 6 fail unless
-every ADC launch of their path took the vectorised route; phase 7 fails
-unless every launch of its parts took the tensor-core or the vectorised
-route.  The last two lines are a JSON object listing the kernels and
+every ADC launch of their path took the vectorised route; phases 7 and 9
+fail unless every launch of their parts took the tensor-core or the
+vectorised route.  Phase 2 holds the kernels against their plain versions
+at phase 9's shapes too (a shard of 2^20 or 2^21 rows, an empty shard, the
+half batch of the split encode; 9c adds the 8-bit ADC at a shard's probe).  The last two lines are a JSON object listing the kernels and
 ``{"ok": true, "device": {...}}``.  Without CUDA, or without the rest of
 the repository beside it, the script exits non-zero and prints no result.
 """
@@ -114,12 +132,19 @@ TRAIN_BATCH = 64
 TRAIN_SEQ = 96
 TRAIN_STEPS = 100
 TRAIN_PROBES = 64
+# phase 9, the multi-device tier: logical shards on the one card
+SHARDS = 4
+SHARD_ROWS = 1 << 22       # 9a: 3 GiB of bf16 rows in each of two indexes
+SHARD_BLOCK = 3 << 16      # 196,608-row adds: blocks cross the shard seams
+SHARD_GROW = 1 << 16       # rows added past the capacity (growth)
+SHARD_DOCS = 1024          # 9d's tail documents; 9e's encoded documents
 #: where the service phase runs: the card (the CPU only in a rehearsal of
 #: the phase at small sizes)
 DEV = "cuda"
 ROOT = os.path.dirname(os.path.abspath(__file__))
 SERVICE_TMP = os.path.join(ROOT, ".chip_tmp", "service")
 TRAIN_TMP = os.path.join(ROOT, ".chip_tmp", "train")
+SHARD_TMP = os.path.join(ROOT, ".chip_tmp", "shards")
 
 
 class SmokeFailure(RuntimeError):
@@ -1700,6 +1725,510 @@ def training(results, docs):
     return parts
 
 
+# ------------------------------------------------------------------ phase 9
+def free_port() -> int:
+    import socket
+
+    s = socket.socket()
+    s.bind(("127.0.0.1", 0))
+    port = s.getsockname()[1]
+    s.close()
+    return port
+
+
+def shard_flat(results):
+    """9a: ``ShardedFlatIndex`` with SHARDS logical shards on the card
+    against one ``FlatIndex`` over the same 2^22 rows (blocks across the
+    seams), tombstones and a filter; searches at B=32 and B=256 (shared
+    bias) and B=32 (per-query bias), then growth past the capacity.
+    → (launches by part, the sharded index and 9b's calls with their
+    results)."""
+    import numpy as np
+    import torch
+
+    from archi_tpu_torch.engine import topk as engine_topk
+    from archi_tpu_torch.engine.flat_index import FlatIndex
+    from archi_tpu_torch.engine.sharded_index import ShardedFlatIndex, _merge
+    from archi_tpu_torch.ops import LAUNCHES, ROUTE_LAUNCHES, reset_launches
+
+    out = {"shards": SHARDS, "rows": SHARD_ROWS}
+    gen = torch.Generator(device=DEV).manual_seed(SEED + 20)
+
+    def unit_rows(n):
+        return torch.nn.functional.normalize(
+            torch.randn(n, 384, device=DEV, generator=gen), dim=1)
+
+    sharded = ShardedFlatIndex(384, devices=[DEV] * SHARDS)
+    flat = FlatIndex(384, device=DEV)
+    engine_topk.FUSED_FALLBACKS["count"] = 0
+    reset_launches()
+    t_sharded = t_flat = 0.0
+    for s0 in range(0, SHARD_ROWS, SHARD_BLOCK):
+        x = unit_rows(min(SHARD_BLOCK, SHARD_ROWS - s0))
+        ids = list(range(s0, s0 + x.shape[0]))
+        sync()
+        t0 = time.perf_counter()
+        sharded.add(x, ids)
+        sync()
+        t_sharded += time.perf_counter() - t0
+        t0 = time.perf_counter()
+        flat.add(x, ids)
+        sync()
+        t_flat += time.perf_counter() - t0
+    del x
+    check(sharded.capacity == flat.capacity == SHARD_ROWS
+          and sharded.shard_cap == SHARD_ROWS // SHARDS
+          and sharded.n_rows == flat.n_rows == SHARD_ROWS,
+          f"9a: capacities {sharded.capacity} / {flat.capacity}")
+    out.update(fill_s_sharded=t_sharded, fill_s_flat=t_flat,
+               shard_cap=sharded.shard_cap)
+    rng = np.random.default_rng(SEED + 21)
+    dead = rng.choice(SHARD_ROWS, 4096, replace=False).tolist()
+    check(sharded.delete(dead) == flat.delete(dead) == 4096, "9a: deletes")
+    fm = torch.from_numpy((rng.random(SHARD_ROWS) > 0.05).astype(
+        np.float32)).to(DEV)
+    stored = torch.arange(7, SHARD_ROWS, SHARD_ROWS // 16, device=DEV)
+    emb_rows = flat.emb[stored].float()
+    q32 = torch.cat([emb_rows, unit_rows(16)])
+    q256 = torch.cat([emb_rows, unit_rows(240)])
+    bias = 0.1 * torch.rand(32, SHARD_ROWS, device=DEV, generator=gen)
+    calls = [("b32_shared", q32, {"filter_mask": fm}),
+             ("b256_shared", q256, {"filter_mask": fm}),
+             ("b32_per_query", q32, {"bias": bias, "filter_mask": fm})]
+
+    stored_np, fm_np = stored.cpu().numpy(), fm.cpu().numpy()
+
+    def compare(part):
+        """Every call on both indexes: scores within 1e-6, rows tie-aware;
+        stored rows (neither deleted nor filtered) at rank 1."""
+        res = {}
+        for name, q, kw in calls:
+            got = sharded.search(q, k=10, **kw)
+            want = flat.search(q, k=10, **kw)
+            check(same_rows(got[1], got[2], want[1], want[2], tol=1e-6),
+                  f"{part}: sharded and flat differ ({name})")
+            out[f"{part}_{name}_max_abs_err"] = float(
+                np.abs(got[1] - want[1]).max())
+            res[name] = got
+        top = res["b32_shared"][2][:16, 0]
+        hidden = np.isin(stored_np, dead) | (fm_np[stored_np] == 0)
+        check(bool(((top == stored_np) | hidden).all()),
+              f"{part}: stored rows miss rank 1")
+        return res
+
+    before = compare("9a")
+    for name, q, kw in calls:
+        out[f"search_ms_sharded_{name}"] = cuda_ms(
+            lambda: sharded.search_dispatch(q, k=10, **kw), iters=5)
+        out[f"search_ms_flat_{name}"] = cuda_ms(
+            lambda: flat.search_dispatch(q, k=10, **kw), iters=5)
+    for b in (32, 256):
+        v = torch.rand(b, SHARDS * 10, device=DEV, generator=gen)
+        r = torch.arange(SHARDS * 10, device=DEV).repeat(b, 1)
+        out[f"merge_ms_b{b}"] = cuda_ms(lambda: _merge(v, r, 10))
+    log(f"  9a: {SHARD_ROWS} rows in {SHARDS} shards of {sharded.shard_cap} "
+        f"(fill {t_sharded:.1f} s, one index {t_flat:.1f} s); B=32 "
+        f"{out['search_ms_sharded_b32_shared']:.3f} ms sharded, "
+        f"{out['search_ms_flat_b32_shared']:.3f} ms one index; B=256 "
+        f"{out['search_ms_sharded_b256_shared']:.3f} / "
+        f"{out['search_ms_flat_b256_shared']:.3f}; per-query bias "
+        f"{out['search_ms_sharded_b32_per_query']:.3f} / "
+        f"{out['search_ms_flat_b32_per_query']:.3f}; the merge "
+        f"{out['merge_ms_b32']:.4f} ms at B=32 ({card_line()})")
+
+    # ---- growth: rows move shard
+    x = unit_rows(SHARD_GROW)
+    ids = list(range(SHARD_ROWS, SHARD_ROWS + SHARD_GROW))
+    sync()
+    t0 = time.perf_counter()
+    sharded.add(x, ids)
+    sync()
+    out["grow_s_sharded"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    flat.add(x, ids)
+    sync()
+    out["grow_s_flat"] = time.perf_counter() - t0
+    check(sharded.capacity == flat.capacity == 2 * SHARD_ROWS
+          and sharded.shard_cap == 2 * SHARD_ROWS // SHARDS,
+          "9a: growth capacities")
+    fm = torch.cat([fm, torch.ones(SHARD_GROW, device=DEV)])
+    bias = torch.cat([bias, torch.zeros(32, SHARD_GROW, device=DEV)], dim=1)
+    q32 = torch.cat([q32[:24], x[:8]])
+    calls = [("b32_shared", q32, {"filter_mask": fm}),
+             ("b32_per_query", q32, {"bias": bias, "filter_mask": fm})]
+    after = compare("9a_grown")
+    fresh_top = after["b32_shared"][2][24:, 0]
+    check(bool((fresh_top == np.arange(SHARD_ROWS, SHARD_ROWS + 8)).all()),
+          "9a: rows added after growth miss rank 1")
+    for name, q, kw in calls:
+        out[f"grown_search_ms_sharded_{name}"] = cuda_ms(
+            lambda: sharded.search_dispatch(q, k=10, **kw), iters=5)
+    sync()
+    launches, routes = dict(LAUNCHES), dict(ROUTE_LAUNCHES)
+    check_routes("9a", launches, routes, ("fused_topk",))
+    check(engine_topk.FUSED_FALLBACKS["count"] == 0, "9a: top-k fell back")
+    log(f"  9a ({results['card']}): grew to {sharded.capacity} "
+        f"({sharded.shard_cap} a shard) in "
+        f"{out['grow_s_sharded']:.2f} s (one index {out['grow_s_flat']:.2f} "
+        f"s); searches equal the one index's (max err "
+        f"{max(v for k, v in out.items() if k.endswith('max_abs_err')):.3g}"
+        f"); {launches['fused_topk']} top-k launches, all on the tensor "
+        f"cores")
+    del flat
+    results["shards"] = {"flat": out}
+    return {"shard_flat": (launches, routes)}, sharded, calls, after
+
+
+def shard_nccl(results, sharded, calls, want):
+    """9b: a one-rank NCCL group (``initialize_distributed`` from
+    COORDINATOR_ADDRESS): 9a's searches go through ``all_gather`` and equal
+    9a's results bit for bit."""
+    import numpy as np
+    import torch.distributed as dist
+
+    from archi_tpu_torch.engine import distributed, sharded_index
+    from archi_tpu_torch.ops import LAUNCHES, ROUTE_LAUNCHES, reset_launches
+
+    gathered = []
+    real = sharded_index.all_gather
+
+    def counted(t, group):
+        gathered.append(tuple(t.shape))
+        return real(t, group)
+
+    os.environ["COORDINATOR_ADDRESS"] = f"127.0.0.1:{free_port()}"
+    sharded_index.all_gather = counted
+    reset_launches()
+    try:
+        t0 = time.perf_counter()
+        distributed.initialize_distributed()
+        init_s = time.perf_counter() - t0
+        try:
+            check(dist.get_backend() == "nccl" and dist.get_world_size() == 1,
+                  "9b: not a one-rank NCCL group")
+            got = {name: sharded.search(q, k=10, **kw)
+                   for name, q, kw in calls}
+            q, kw = calls[0][1], calls[0][2]
+            ms = cuda_ms(lambda: sharded.search_dispatch(q, k=10, **kw),
+                         iters=5)
+        finally:
+            dist.destroy_process_group()
+    finally:
+        sharded_index.all_gather = real
+        del os.environ["COORDINATOR_ADDRESS"]
+    sync()
+    launches, routes = dict(LAUNCHES), dict(ROUTE_LAUNCHES)
+    check(len(gathered) >= 2 * len(calls), "9b: no all_gather ran")
+    for name, (gi, gv, gr) in got.items():
+        wi, wv, wr = want[name]
+        check(gi == wi and np.array_equal(gv, wv) and np.array_equal(gr, wr),
+              f"9b: {name} through the group differs from 9a")
+    check_routes("9b", launches, routes, ("fused_topk",))
+    results["shards"]["nccl"] = {"init_s": init_s, "all_gathers":
+                                 len(gathered), "search_ms_b32_shared": ms}
+    log(f"  9b: one-rank NCCL group up in {init_s:.2f} s; {len(got)} "
+        f"searches through {len(gathered)} all_gathers equal 9a's bit for "
+        f"bit; B=32 {ms:.3f} ms through the group ({results['card']})")
+    return {"shard_nccl": (launches, routes)}
+
+
+def shard_ivf(results):
+    """9c: ``ShardedIVFIndex`` and ``ShardedIVFPQIndex`` built over 2^22
+    clustered rows (phase 5's generator and seed) in SHARDS shards on the
+    card, at path A's parameters (IVF-PQ candidates rescored exactly, 4 x k,
+    by a host tier); recall@10 against the exact scan."""
+    import numpy as np
+    import torch
+
+    from archi_tpu_torch.engine.host_store import HostVectorStore
+    from archi_tpu_torch.engine.sharded_ivf import ShardedIVFIndex
+    from archi_tpu_torch.engine.sharded_ivfpq import ShardedIVFPQIndex
+    from archi_tpu_torch.ops import LAUNCHES, ROUTE_LAUNCHES, reset_launches
+
+    out = {}
+    corpus = ClusteredRows(PATH_ROWS, SEED + 6)
+    x = torch.cat([corpus.rows(FILL_BATCH)
+                   for _ in range(PATH_ROWS // FILL_BATCH)])
+    q = corpus.rows(32)
+    exact = exact_top10(x, PATH_ROWS, q)
+    t0 = time.perf_counter()
+    xh = x.cpu().numpy()
+    # the rows of the exact rerank tier, f16 as path B's host store holds
+    # them (a same-type add is one copy)
+    x16 = x.half().cpu().numpy()
+    out["to_host_s"] = time.perf_counter() - t0
+    del x
+    torch.cuda.empty_cache()
+    reset_launches()
+    t0 = time.perf_counter()
+    ivf = ShardedIVFIndex.build(xh, range(PATH_ROWS), devices=[DEV] * SHARDS,
+                                nlist=1024, block=512)
+    sync()
+    out["ivf_build_s"] = time.perf_counter() - t0
+    rows = ivf.search(q, k=10, nprobe=64)[2]
+    out["ivf_recall_at_10"] = recall_at_10(rows, exact)
+    out["ivf_search_ms_b32"] = host_ms(lambda: ivf.search(q, k=10, nprobe=64))
+    del ivf
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    pq = ShardedIVFPQIndex.build(xh, None, devices=[DEV] * SHARDS,
+                                 nlist=1024, block=512, m=48, refine_m=48)
+    sync()
+    out["ivfpq_build_s"] = time.perf_counter() - t0
+    del xh
+    # path A rescores rerank_overfetch (4) x k ADC candidates exactly; here
+    # the host tier does it (config 4's shape), by global row
+    t0 = time.perf_counter()
+    plane = HostVectorStore(384, capacity=PATH_ROWS)
+    plane.add(x16)
+    out["rerank_plane_s"] = time.perf_counter() - t0
+    del x16
+    rows = pq.search(q, k=10, nprobe=64, rerank_store=plane)[2]
+    out["ivfpq_recall_at_10"] = recall_at_10(rows, exact)
+    # the ADC and its refinement alone, without the exact tier (a reading:
+    # 64 near-duplicates a cluster are within the PQ error of each other)
+    rows = pq.search(q, k=10, nprobe=64)[2]
+    out["ivfpq_adc_only_recall_at_10"] = recall_at_10(rows, exact)
+    out["ivfpq_search_ms_b32"] = host_ms(
+        lambda: pq.search(q, k=10, nprobe=64, rerank_store=plane))
+    sync()
+    launches, routes = dict(LAUNCHES), dict(ROUTE_LAUNCHES)
+    max_bpc = max(int(s.cell_blocks.shape[1]) for s in pq.shards)
+    out["max_bpc"] = max_bpc
+    log(f"  9c: {PATH_ROWS} clustered rows in {SHARDS} shards: IVF built in "
+        f"{out['ivf_build_s']:.1f} s, recall@10 "
+        f"{out['ivf_recall_at_10']:.3f}, B=32 {out['ivf_search_ms_b32']:.1f} "
+        f"ms; IVF-PQ built in {out['ivfpq_build_s']:.1f} s, recall@10 "
+        f"{out['ivfpq_recall_at_10']:.3f} with the host rerank "
+        f"({out['ivfpq_adc_only_recall_at_10']:.3f} without), B=32 "
+        f"{out['ivfpq_search_ms_b32']:.1f} ms (host clock); "
+        f"{launches['adc_scores']} ADC launches ({results['card']})")
+    check_routes("9c", launches, routes, ("adc_scores",))
+    # limits: path A's (the same corpus and parameters on one index)
+    check(out["ivf_recall_at_10"] >= 0.6 and out["ivfpq_recall_at_10"] >= 0.6,
+          f"9c: recall@10 {out['ivf_recall_at_10']:.3f} / "
+          f"{out['ivfpq_recall_at_10']:.3f} < 0.6")
+    del pq, plane
+    torch.cuda.empty_cache()
+    # the 8-bit kernel against its plain version at a shard's probe shape
+    # (one query a group over 64 cells of up to max_bpc blocks of 512)
+    results["adc_scores"].append(adc_case(
+        f"adc8_g1_m48_s{64 * max_bpc * 512}_shard", 48, 1,
+        64 * max_bpc * 512, False, timed=True))
+    results["shards"]["ivf"] = out
+    return {"shard_ivf": (launches, routes)}
+
+
+def shard_xl(results, emb, vocab):
+    """9d: ``type: ivfpq_xl_sharded`` at the bootstrap's defaults through
+    ``build_vectorstore`` on SHARDS shards of the card: 2^20 clustered rows
+    through ``add_texts``, documents in a fresh tail, 64 clients x 8
+    micro-batched hybrid requests against the direct path, recall, exact
+    scores, the profile split, save/load and ``adopt_stores`` over
+    ``HostVectorStore.view`` windows."""
+    import numpy as np
+    import torch
+
+    from archi_tpu_torch.bin.bootstrap import build_vectorstore
+    from archi_tpu_torch.engine import topk as engine_topk
+    from archi_tpu_torch.engine.host_store import BF16, HostVectorStore
+    from archi_tpu_torch.engine.sharded_xl import ShardedXlPQIndex
+    from archi_tpu_torch.models.train_encoder import save_model_dir
+    from archi_tpu_torch.ops import LAUNCHES, ROUTE_LAUNCHES, reset_launches
+
+    out = {}
+    model_dir = os.path.join(SHARD_TMP, "model")
+    save_model_dir(model_dir, emb.config, emb.model, emb.tokenizer)
+    dm = {"embedding_name": "minilm", "model_dir": model_dir,
+          "data_path": os.path.join(SHARD_TMP, "xl", "data"),
+          "index": {"type": "ivfpq_xl_sharded",
+                    "store_dir": os.path.join(SHARD_TMP, "xl", "planes")},
+          "serving": {"micro_batch": {"enabled": True}}}
+    st = build_vectorstore(dm, devices=[DEV] * SHARDS)
+    idx = st.index
+    check(isinstance(idx, ShardedXlPQIndex) and idx.n_shards == SHARDS
+          and all((s.nlist, s.block, s.pq_m, s.pq_refine_m, s.ksub,
+                   s.nprobe_blocks, s.min_snapshot_rows, s.build_block_rows,
+                   s.rerank_overfetch, s.async_refresh)
+                  == (4096, 512, 48, 48, 16, 128, 1 << 17, 1 << 17, 16,
+                      False) for s in idx.shards),
+          "9d: not a sharded XL tier at the bootstrap's defaults")
+    rng = np.random.default_rng(SEED + 9)
+    corpus = ClusteredRows(XL_ROWS, SEED + 10, d=idx.dim)
+    fill = synthetic_texts(rng, vocab, XL_ROWS, 3)
+
+    engine_topk.FUSED_FALLBACKS["count"] = 0
+    reset_launches()
+    t0 = time.perf_counter()
+    for s0 in range(0, XL_ROWS, FILL_BATCH):
+        chunk = fill[s0:s0 + FILL_BATCH]
+        st.add_texts(chunk, embeddings=corpus.rows(len(chunk)))
+    out["fill_s"] = time.perf_counter() - t0
+    per = XL_ROWS // SHARDS
+    check([(s.n_rows, s._n_snap) for s in idx.shards] == [(per, per)] * SHARDS
+          and all(s.refresh_failures == 0 for s in idx.shards),
+          "9d: shards not balanced, or a snapshot missing")
+    xl_docs = synthetic_texts(rng, vocab, SHARD_DOCS, 96, prefix="sx")
+    t0 = time.perf_counter()
+    doc_ids = st.add_texts(xl_docs)
+    out["ingest_s"] = time.perf_counter() - t0
+    check(sum(len(s.tail) for s in idx.shards) == SHARD_DOCS,
+          "9d: documents not in a fresh tail")
+    log(f"  9d ({results['card']}): filled {XL_ROWS} rows into {SHARDS} "
+        f"shards in "
+        f"{out['fill_s']:.1f} s (every shard's snapshot {per} rows), "
+        f"{SHARD_DOCS} documents into a tail in {out['ingest_s']:.1f} s")
+
+    probe = rng.choice(SHARD_DOCS, SVC_CLIENTS * 4, replace=False)
+    reqs = [[("hybrid", xl_docs[probe[c * 4 + j]]) for j in range(4)]
+            + [("hybrid", short_query(rng, vocab)) for _ in range(4)]
+            for c in range(SVC_CLIENTS)]
+    got, lat, wall = run_clients(st, reqs)
+    t0 = time.perf_counter()
+    want = {(c, j): st._hybrid_search_impl(q, k=10)
+            for c in range(SVC_CLIENTS) for j, (_k, q) in enumerate(reqs[c])}
+    seq_wall = time.perf_counter() - t0
+    bad = [key for key, w in want.items() if not same_ranking(got[key], w)]
+    check(not bad, f"9d: micro-batched results differ from the direct path "
+                   f"at {bad[:8]}")
+    miss = [c for c in range(SVC_CLIENTS) for j in range(4)
+            if ids_of(got[(c, j)])[:1] != [doc_ids[probe[c * 4 + j]]]]
+    check(not miss, f"9d: documents miss rank 1 ({len(miss)})")
+    out.update(requests=len(got), qps_micro_batched=len(got) / wall,
+               qps_request_at_a_time=len(got) / seq_wall, **latency_ms(lat))
+
+    # recall@10 and exact scores against the shards' host rows
+    qv = corpus.rows(32)
+    ids, vals, rows = idx.search(qv, k=10)
+    plane = torch.empty((idx.n_rows, idx.dim), dtype=torch.bfloat16,
+                        device=DEV)
+    for s, shard in enumerate(idx.shards):
+        g = torch.from_numpy(idx._global_rows(s)).to(DEV)
+        raw = np.array(shard.store._buf[:shard.n_rows]).view(np.int16)
+        plane[g] = torch.from_numpy(raw).to(DEV).view(torch.bfloat16)
+    exact = exact_top10(plane, idx.n_rows, qv)
+    out["recall_at_10"] = recall_at_10(rows, exact)
+    qn = torch.nn.functional.normalize(qv, dim=1)
+    got_s = torch.from_numpy(vals).to(DEV)
+    prod = (plane[torch.from_numpy(rows).to(DEV)].float()
+            * qn[:, None, :]).sum(-1)
+    out["score_max_abs_err_vs_plane"] = float((got_s - prod).abs().max())
+    del plane, prod
+    check(out["recall_at_10"] >= 0.9,
+          f"9d: recall@10 {out['recall_at_10']:.3f} < 0.9")
+    check(out["score_max_abs_err_vs_plane"] <= 1e-4,
+          f"9d: scores off the exact products by "
+          f"{out['score_max_abs_err_vs_plane']:.3g}")
+    prof = {}
+    idx.search(qv, k=10, profile=prof)
+    out["profile_b32"] = prof
+    out["search_ms_b32"] = host_ms(lambda: idx.search(qv, k=10))
+    sync()
+    launches, routes = dict(LAUNCHES), dict(ROUTE_LAUNCHES)
+    check_routes("9d", launches, routes,
+                 ("fused_topk", "encoder_attention", "adc_scores_lut16"))
+    check(engine_topk.FUSED_FALLBACKS["count"] == 0, "9d: top-k fell back")
+    st._batcher.close()
+
+    # save/load round trip
+    path = os.path.join(SHARD_TMP, "xl", "ckpt", "index.npz")
+    t0 = time.perf_counter()
+    idx.save(path)
+    loaded = ShardedXlPQIndex.load(path, devices=[DEV] * SHARDS)
+    out["save_load_s"] = time.perf_counter() - t0
+    after = loaded.search(qv, k=10)
+    check(after[0] == ids and np.array_equal(after[1], vals),
+          "9d: the save/load round trip changed the results")
+    del loaded
+
+    # adopt_stores over views of one plane that holds the shards' rows
+    # shard-major: the adopted tier answers as the one filled by add()
+    t0 = time.perf_counter()
+    big = HostVectorStore(idx.dim, capacity=idx.n_rows, dtype=BF16)
+    for shard in idx.shards:
+        big.add(shard.store.to_f32(shard.store._buf[:shard.n_rows]))
+    bounds = np.cumsum([0] + [s.n_rows for s in idx.shards])
+    views = [HostVectorStore.view(big, int(lo), int(hi))
+             for lo, hi in zip(bounds[:-1], bounds[1:])]
+    s0 = idx.shards[0]
+    adopted = ShardedXlPQIndex(
+        idx.dim, devices=[DEV] * SHARDS, stores=views, normalize=False,
+        nlist=s0.nlist, block=s0.block, pq_m=s0.pq_m,
+        pq_refine_m=s0.pq_refine_m, nprobe_blocks=s0.nprobe_blocks,
+        rerank_overfetch=s0.rerank_overfetch,
+        min_snapshot_rows=s0.min_snapshot_rows,
+        build_block_rows=s0.build_block_rows)
+    adopted.adopt_stores([s._ids for s in idx.shards])
+    sync()
+    out["adopt_s"] = time.perf_counter() - t0
+    # every block probed: both tiers return the exact top-10 of their
+    # candidates, independent of the k-means' float atomics
+    full = max(int(s._ivf.code_blocks.shape[0]) for s in adopted.shards)
+    a_ids, a_vals, _ = adopted.search(qv, k=10, nprobe_blocks=full)
+    f_ids, f_vals, _ = idx.search(qv, k=10, nprobe_blocks=full)
+    check(a_ids == f_ids and np.abs(a_vals - f_vals).max() <= 1e-6,
+          "9d: the adopted tier differs from the one filled by add()")
+    d_ids = adopted.search(qv, k=10)[0]
+    out["adopt_top10_agreement_default_probe"] = float(np.mean(
+        [len(set(a) & set(b)) / 10 for a, b in zip(d_ids, ids)]))
+    del adopted, views, big
+    results["shards"]["xl"] = out
+    log(f"  9d ({results['card']}): " + json.dumps(out))
+    return {"shard_xl": (launches, routes)}
+
+
+def shard_encode(results, emb, docs):
+    """9e: ``TorchEmbedder(devices=[DEV] * 2)``, the data-parallel encode,
+    over phase 3's first documents against the single-device embedder."""
+    import numpy as np
+
+    from archi_tpu_torch.models.bert import BertConfig
+    from archi_tpu_torch.models.embedder import TorchEmbedder
+    from archi_tpu_torch.ops import LAUNCHES, ROUTE_LAUNCHES, reset_launches
+
+    texts = docs[:SHARD_DOCS]
+    dp = TorchEmbedder(config=BertConfig.minilm_l6(), tokenizer=emb.tokenizer,
+                       seed=SEED, devices=[DEV] * 2)
+    reset_launches()
+    t0 = time.perf_counter()
+    a = dp.encode_numpy(texts)
+    sync()
+    dp_s = time.perf_counter() - t0
+    launches, routes = dict(LAUNCHES), dict(ROUTE_LAUNCHES)
+    check_routes("9e", launches, routes, ("encoder_attention",))
+    t0 = time.perf_counter()
+    b = emb.encode_numpy(texts)
+    sync()
+    one_s = time.perf_counter() - t0
+    cos = float(np.min(np.sum(a * b, axis=1) / (
+        np.linalg.norm(a, axis=1) * np.linalg.norm(b, axis=1))))
+    check(np.isfinite(a).all() and a.shape == b.shape and cos >= 0.9999,
+          f"9e: data-parallel encode against one device: min cosine {cos}")
+    results["shards"]["encode"] = {"docs": len(texts), "min_cosine": cos,
+                                   "split_s": dp_s, "one_device_s": one_s}
+    log(f"  9e: {len(texts)} documents encoded in two halves a batch in "
+        f"{dp_s:.2f} s (one device {one_s:.2f} s); min cosine {cos:.6f} "
+        f"(limit 0.9999; {results['card']})")
+    return {"shard_encode": (launches, routes)}
+
+
+def multi_device(results, emb, docs, vocab):
+    """Phase 9, parts 9a-9e; each part runs with the counts set to 0 just
+    before it.  → launches by part."""
+    import torch
+
+    shutil.rmtree(SHARD_TMP, ignore_errors=True)
+    parts, sharded, calls, after = shard_flat(results)
+    parts.update(shard_nccl(results, sharded, calls, after))
+    del sharded, calls, after
+    torch.cuda.empty_cache()
+    parts.update(shard_ivf(results))
+    parts.update(shard_xl(results, emb, vocab))
+    torch.cuda.empty_cache()
+    parts.update(shard_encode(results, emb, docs))
+    return parts
+
+
 def main() -> int:
     import torch
 
@@ -1759,6 +2288,17 @@ def main() -> int:
         # wider rows, a ragged edge and k = 128 on the tensor-core route
         topk_case("topk_b33_k128_d768_bf16", 33, 300_007, 299_000, bf16, True,
                   k=128, d=768),
+        # phase 9a's shards: 2^22 rows in 4 shards of 2^20; after growth
+        # shards of 2^21, one with the 2^16 new rows, one empty
+        topk_case("topk_b32_shard_bf16", 32, 1 << 20, 1 << 20, bf16, False,
+                  timed=True),
+        topk_case("topk_b256_shard_bf16", 256, 1 << 20, 1 << 20, bf16,
+                  False),
+        topk_case("topk_b32_perquery_shard_bf16", 32, 1 << 20, 1 << 20, bf16,
+                  True),
+        topk_case("topk_b32_grown_shard_bf16", 32, 1 << 21, 1 << 16, bf16,
+                  False),
+        topk_case("topk_b32_empty_shard_bf16", 32, 1 << 21, 0, bf16, False),
     ]
     attn = [
         # ingest (256 chunks in the 128 bucket) and queries (the 64 bucket,
@@ -1775,6 +2315,9 @@ def main() -> int:
         attention_case("attn_b256_s128_f32", 256, 128, torch.float32,
                        timed=True),
         attention_case("attn_b256_s512_f32", 256, 512, torch.float32),
+        # phase 9e: a 256-document batch encoded in two halves
+        attention_case("attn_b128_s128_bf16", 128, 128, torch.bfloat16,
+                       timed=True),
     ]
     adc8 = [
         # path A: cell probing, one query a group (G=1) over 64 cells of up
@@ -1830,6 +2373,16 @@ def main() -> int:
         parts.update(training(results, docs))
     finally:
         shutil.rmtree(TRAIN_TMP, ignore_errors=True)
+    torch.cuda.empty_cache()
+
+    log(f"phase 9: the multi-device tier, {SHARDS} shards on the card")
+    t0 = time.perf_counter()
+    try:
+        parts.update(multi_device(results, emb, docs, vocab))
+    finally:
+        shutil.rmtree(SHARD_TMP, ignore_errors=True)
+    results["shards"]["seconds"] = time.perf_counter() - t0
+    log(f"  phase 9 took {results['shards']['seconds']:.1f} s ({card})")
     # each path and part ran with the counts set to 0 just before it
     results["launches"] = {"main": launches, "path_a": launches_a,
                            "path_b": launches_b}

@@ -169,13 +169,14 @@ def test_snapshot_dir_loads_alike_in_both_packages(tiny_hf, tmp_path):
                                jemb.encode_numpy(TEXTS), rtol=RTOL, atol=1e-5)
 
 
-def _embedders(**kw):
+def _embedders(*, jax_kw=None, devices=None, **kw):
     jtok = JaxTokenizer.build_vocab(TEXTS)
     ttok = WordPieceTokenizer(dict(jtok.vocab))
     jemb = JaxEmbedder(config=jbert.BertConfig(**_cfg()), tokenizer=jtok,
-                       compute_dtype=jnp.float32, attention_impl="xla", **kw)
+                       compute_dtype=jnp.float32, attention_impl="xla",
+                       **kw, **(jax_kw or {}))
     temb = TorchEmbedder(config=tbert.BertConfig(**_cfg()), tokenizer=ttok,
-                         device="cpu", **kw)
+                         device="cpu", devices=devices, **kw)
     return jemb, temb
 
 
@@ -209,3 +210,30 @@ def test_pad_batch_buckets_and_masks():
     ids, mask = temb._pad_batch([[1, 2, 3], [4] * 70])
     assert ids.shape == (8, 128) and mask.shape == (8, 128)
     assert mask[2:].sum() == 0 and mask[0].sum() == 3 and mask[1].sum() == 70
+
+
+@pytest.mark.parametrize("n_dev", [2, 3])
+def test_data_parallel_encode_matches_jax_mesh_embedder(n_dev):
+    """``devices=`` splits each padded batch over the devices (a device may
+    repeat), as the JAX embedder's ``mesh=`` does over the 8-device CPU
+    mesh: the same outputs, and batches padded to a multiple of the
+    device count."""
+    import jax
+
+    from archi_tpu.engine.distributed import data_mesh
+
+    mesh = data_mesh(devices=jax.devices()[:n_dev])
+    jemb, temb = _embedders(devices=["cpu"] * n_dev, jax_kw={"mesh": mesh})
+    texts = TEXTS * 3 + ["one more"]            # 13: not a multiple of n
+    np.testing.assert_allclose(temb.encode_numpy(texts),
+                               jemb.encode_numpy(texts), rtol=RTOL,
+                               atol=1e-5)
+    ids, _mask = temb._pad_batch([[1]] * 9)
+    jids, _jmask = jemb._pad_batch([[1]] * 9)
+    assert ids.shape == jids.shape and ids.shape[0] % n_dev == 0
+    _, single = _embedders()
+    np.testing.assert_allclose(temb.encode_numpy(texts),
+                               single.encode_numpy(texts), rtol=1e-5,
+                               atol=1e-6)
+    assert len(temb._replicas) == 1 and temb.devices == [
+        torch.device("cpu")] * n_dev

@@ -6,8 +6,10 @@ against the JAX package's ``archi_tpu/bin/bootstrap.py`` and
 - every registry name resolves to the port's class for it; the hash
   embedders give outputs identical to the JAX package's;
 - ``build_index`` gives each of the five single-device types the
-  constructor values of the JAX ``_build_index`` for the same config; the
-  multi-device types raise;
+  constructor values of the JAX ``_build_index`` for the same config, and
+  the two multi-device types (``sharded``, ``ivfpq_xl_sharded``) the JAX
+  values over the same number of shards (``devices=["cpu"] * 8`` against
+  the 8-device CPU mesh); without CUDA they raise unless given devices;
 - ``build_vectorstore`` restores an ``engine_checkpoint`` the JAX store
   wrote (flat, hot_tail, ivf, ivfpq) and serves its results (f32 rows,
   1e-5, tie-aware), turns on micro-batching from the config, and raises
@@ -28,6 +30,8 @@ from archi_tpu_torch.bin.bootstrap import build_index, build_vectorstore
 from archi_tpu_torch.engine.ann_index import AnnFlatIndex
 from archi_tpu_torch.engine.flat_index import FlatIndex
 from archi_tpu_torch.engine.segmented_index import SegmentedFlatIndex
+from archi_tpu_torch.engine.sharded_index import ShardedFlatIndex
+from archi_tpu_torch.engine.sharded_xl import ShardedXlPQIndex
 from archi_tpu_torch.engine.xl_index import XlPQIndex
 from archi_tpu_torch.models import registry
 from archi_tpu_torch.models.embedder import TorchEmbedder
@@ -179,10 +183,52 @@ def test_build_index_types():
     assert isinstance(xl, XlPQIndex) and xl.async_refresh
 
 
+SHARDED = {
+    "sharded": {"type": "sharded"},
+    "sharded_f32": {"type": "sharded", "dtype": "float32", "tile_n": 256},
+    "ivfpq_xl_sharded": {"type": "ivfpq_xl_sharded"},
+    "ivfpq_xl_sharded_tuned": {
+        "type": "ivfpq_xl_sharded", "nlist": 8, "block": 128, "pq_m": 8,
+        "pq_refine_m": 8, "nprobe_blocks": 0, "cell_gate": 4,
+        "block_rank_sub": 2, "rerank_overfetch": 4, "extract": "hier",
+        "hier_t": 32, "min_snapshot_rows": 4096, "build_block_rows": 2048,
+        "dtype": "float32", "tile_n": 512},
+}
+
+
+@pytest.mark.parametrize("name", list(SHARDED))
+def test_build_index_sharded_types_match_jax_defaults(name, tmp_path):
+    cfg = dict(SHARDED[name])
+    if name.endswith("tuned"):
+        cfg["store_dir"] = str(tmp_path / "planes")
+    want_idx = jboot._build_index(32, cfg)
+    got_idx = build_index(32, cfg, devices=["cpu"] * 8)
+    keys = ["class", "dtype", "dim", "tile_n", "normalize", "metric",
+            "n_shards", "capacity", "n_rows"]
+    if cfg["type"] == "ivfpq_xl_sharded":
+        keys = ["class", "dim", "normalize", "n_shards", "store_dir",
+                "capacity", "n_rows"]
+        # every shard is an XlPQIndex with the JAX shard's settings
+        want_shard = _settings(want_idx.shards[0])
+        assert _settings(got_idx.shards[0], list(want_shard)) == want_shard
+        assert [s.store.path for s in got_idx.shards] == \
+            [s.store.path for s in want_idx.shards]
+    assert _settings(got_idx, keys) == _settings(want_idx, keys)
+    assert got_idx.n_shards == 8
+    assert type(got_idx) in (ShardedFlatIndex, ShardedXlPQIndex)
+
+
 @pytest.mark.parametrize("kind", ["sharded", "ivfpq_xl_sharded"])
-def test_multi_device_types_raise(kind):
-    with pytest.raises(NotImplementedError, match="item 15"):
-        build_index(32, {"type": kind}, device="cpu")
+def test_multi_device_types_raise(kind, monkeypatch):
+    """Without CUDA the multi-device types raise unless the caller names
+    the devices (or the CPU); with ``device="cpu"`` alone they hold one
+    shard there."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        build_index(32, {"type": kind})
+    assert build_index(32, {"type": kind}, device="cpu").n_shards == 1
+    assert build_index(32, {"type": kind},
+                       devices=["cpu"] * 3).n_shards == 3
 
 
 # ---------------------------------------------------------- build_vectorstore

@@ -657,3 +657,206 @@ def test_adc_ann_path_shapes(dev, m, g, s, packed):
     blocks of 512) and path B's 4-bit ADC (groups of 2 over 2 x 128 blocks)
     at their exact shapes, on the vectorised route."""
     assert _adc_launch(dev, m, g, s, 256, packed, seed=s) == "vector"
+
+
+# ------------------------------------------------------ the multi-device tier
+def _same_topk(got, want, tol):
+    """(vals, rows) tie-aware: scores within tol position by position; a
+    live row in one list only ties with the last live score kept."""
+    (gv, gr), (wv, wr) = got, want
+    np.testing.assert_allclose(gv, wv, rtol=0, atol=tol)
+    for b in range(gv.shape[0]):
+        g = {int(r): v for r, v in zip(gr[b], gv[b]) if v > -1e29}
+        w = {int(r): v for r, v in zip(wr[b], wv[b]) if v > -1e29}
+        live = wv[b][wv[b] > -1e29]
+        for r in set(g) ^ set(w):
+            assert abs(g.get(r, w.get(r)) - live[-1]) <= tol, (b, r)
+
+
+def _unit_rows(n, d, seed):
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    return torch.nn.functional.normalize(torch.randn(n, d, generator=g), dim=1)
+
+
+@pytest.mark.parametrize("tile,blocks", [
+    (256, (1000, 4000)),                 # growth 1024 -> 8192, rows move
+    (128, (777, 1024, 1200, 5)),         # ragged blocks across seams
+])
+def test_sharded_flat_matches_flat_on_one_card(dev, tile, blocks):
+    """Four shards on cuda:0 against one FlatIndex, bf16: the same scores
+    (1e-6) and rows (tie-aware) through growth, tombstones, a short filter
+    and a per-query bias; every top-k launch on the tensor cores."""
+    from archi_tpu_torch.engine.flat_index import FlatIndex
+    from archi_tpu_torch.engine.sharded_index import ShardedFlatIndex
+    from archi_tpu_torch.ops import ROUTE_LAUNCHES, reset_launches
+
+    d = 384
+    sharded = ShardedFlatIndex(d, devices=["cuda:0"] * 4, tile_n=tile)
+    flat = FlatIndex(d, tile_n=tile, device="cuda")
+    x = _unit_rows(sum(blocks), d, 1)
+    s0 = 0
+    for n in blocks:
+        ids = [f"r{i}" for i in range(s0, s0 + n)]
+        assert sharded.add(x[s0:s0 + n].to(dev), ids) == \
+            flat.add(x[s0:s0 + n].to(dev), ids)
+        s0 += n
+    assert sharded.shard_cap * 4 == sharded.capacity
+    assert all(e.device == torch.device("cuda", 0) for e in sharded._embs)
+    dead = [f"r{i}" for i in range(0, s0, 97)]
+    sharded.delete(dead), flat.delete(dead)
+    q = torch.cat([x[[3, s0 - 1]], _unit_rows(30, d, 2)]).to(dev)
+    n_rows = sharded.n_rows
+    rng = np.random.default_rng(0)
+    bias = torch.from_numpy(0.2 * rng.random((32, n_rows - 50)).astype(
+        np.float32)).to(dev)
+    fm = torch.from_numpy((rng.random(n_rows // 2) > 0.3).astype(
+        np.float32)).to(dev)
+    reset_launches()
+    for kw in ({}, {"bias": bias}, {"filter_mask": fm, "bias": bias[0]}):
+        for k in (1, 10, 128):
+            _gi, gv, gr = sharded.search(q, k=k, **kw)
+            _wi, wv, wr = flat.search(q, k=k, **kw)
+            _same_topk((gv, gr), (wv, wr), 1e-6)
+    assert ROUTE_LAUNCHES["fused_topk:cuda_core"] == 0
+    assert ROUTE_LAUNCHES["fused_topk:tensor_core"] == 9 * (4 + 1)
+
+
+def _plain_adc(ivfs):
+    """Make each IVF-PQ index score with the plain ADC (on the card)."""
+    import functools
+
+    for ivf in ivfs:
+        ivf.search_dispatch = functools.partial(ivf.search_dispatch,
+                                                adc_impl="plain")
+
+
+def test_sharded_ivfpq_on_one_card_matches_plain_adc(dev):
+    """Four IVF-PQ shards on cuda:0: the 8-bit ADC kernel on the vectorised
+    route gives the results of the plain ADC on the same shards, with a
+    global bias and the host rerank."""
+    from archi_tpu_torch.engine.host_store import HostVectorStore
+    from archi_tpu_torch.engine.sharded_ivfpq import ShardedIVFPQIndex
+    from archi_tpu_torch.ops import ROUTE_LAUNCHES, reset_launches
+
+    x = _unit_rows(8192, 64, 3).numpy()
+    idx = ShardedIVFPQIndex.build(x, None, devices=["cuda:0"] * 4, nlist=16,
+                                  block=128, m=8, refine_m=8)
+    assert all(s.device == torch.device("cuda", 0) for s in idx.shards)
+    q = x[[5, 2100, 4500, 8000]] + 0.01
+    bias = np.zeros(8192, np.float32)
+    bias[[5, 7000]] = [-1e30, 2.0]
+    store = HostVectorStore(64)
+    store.add(x)
+    cases = ({"nprobe": 4}, {"nprobe": 16, "bias": bias},
+             {"nprobe_blocks": 8, "rerank_store": store})
+    reset_launches()
+    got = [idx.search(q, k=10, **kw) for kw in cases]
+    assert LAUNCHES["adc_scores"] > 0
+    assert ROUTE_LAUNCHES["adc_scores:vector"] == LAUNCHES["adc_scores"]
+    _plain_adc(idx.shards)
+    for (_gi, gv, gr), kw in zip(got, cases):
+        _i, wv, wr = idx.search(q, k=10, **kw)
+        _same_topk((gv, gr), (wv, wr), 1e-5)
+
+
+def test_sharded_xl_on_one_card_matches_plain_adc(dev):
+    """Four XL shards on cuda:0 (snapshots and fresh tails): the 4-bit ADC
+    kernel on the vectorised route and the top-k on the tensor cores give
+    the results of the plain ADC on the same shards."""
+    from archi_tpu_torch.engine.sharded_xl import ShardedXlPQIndex
+    from archi_tpu_torch.ops import ROUTE_LAUNCHES, reset_launches
+
+    d = 64
+    x = _unit_rows(9000, d, 4).numpy()
+    idx = ShardedXlPQIndex(d, devices=["cuda:0"] * 4, nlist=16, block=128,
+                           pq_m=8, pq_refine_m=8, nprobe_blocks=16,
+                           min_snapshot_rows=1024, build_block_rows=1024)
+    for s0 in range(0, 9000, 1500):
+        idx.add(x[s0:s0 + 1500], list(range(s0, s0 + 1500)))
+    assert all(s._n_snap > 0 and s.n_rows > s._n_snap for s in idx.shards)
+    idx.delete([7, 4000])
+    q = x[[7, 100, 3000, 8999]] + 0.01
+    bias = np.zeros((4, 9000), np.float32)
+    bias[np.arange(4), [10, 2000, 5000, 8500]] = 3.0
+    cases = ({}, {"bias": torch.from_numpy(bias).to(dev)},
+             {"filter_mask": (np.arange(9000) % 3 > 0).astype(np.float32)})
+    reset_launches()
+    got = [idx.search(q, k=10, **kw) for kw in cases]
+    assert LAUNCHES["adc_scores_lut16"] > 0 and LAUNCHES["fused_topk"] > 0
+    assert ROUTE_LAUNCHES["adc_scores_lut16:vector"] == \
+        LAUNCHES["adc_scores_lut16"]
+    assert ROUTE_LAUNCHES["fused_topk:tensor_core"] == LAUNCHES["fused_topk"]
+    _plain_adc(s._ivf for s in idx.shards)
+    for (_gi, gv, gr), kw in zip(got, cases):
+        _i, wv, wr = idx.search(q, k=10, **kw)
+        _same_topk((gv, gr), (wv, wr), 1e-5)
+    assert 7 not in set(got[0][2].reshape(-1).tolist())
+
+
+def test_one_rank_nccl_group_merges_like_no_group(dev, monkeypatch):
+    """A one-process NCCL group: the sharded search goes through
+    ``all_gather`` and returns what it returns without a group, bit for
+    bit."""
+    import socket
+
+    import torch.distributed as dist
+
+    from archi_tpu_torch.engine import distributed
+    from archi_tpu_torch.engine.sharded_index import ShardedFlatIndex
+
+    idx = ShardedFlatIndex(384, devices=["cuda:0"] * 4, tile_n=256)
+    idx.add(_unit_rows(6000, 384, 5).to(dev), list(range(6000)))
+    q = _unit_rows(8, 384, 6).to(dev)
+    bias = torch.rand(8, 6000, device=dev) * 0.1
+    want = [idx.search(q, k=k, bias=b) for k in (1, 10) for b in (None, bias)]
+    s = socket.socket()
+    s.bind(("127.0.0.1", 0))
+    port = s.getsockname()[1]
+    s.close()
+    monkeypatch.setenv("COORDINATOR_ADDRESS", f"127.0.0.1:{port}")
+    gathered = []
+    real = distributed.all_gather
+
+    def counted(t, group):
+        gathered.append(t.shape)
+        return real(t, group)
+
+    monkeypatch.setattr("archi_tpu_torch.engine.sharded_index.all_gather",
+                        counted)
+    distributed.initialize_distributed()
+    try:
+        assert dist.get_backend() == "nccl" and dist.get_world_size() == 1
+        got = [idx.search(q, k=k, bias=b) for k in (1, 10)
+               for b in (None, bias)]
+    finally:
+        dist.destroy_process_group()
+    assert len(gathered) == 8
+    for (gi, gv, gr), (wi, wv, wr) in zip(got, want):
+        assert gi == wi and (gr == wr).all()
+        assert np.array_equal(gv, wv)
+
+
+def test_data_parallel_encode_matches_one_device(dev):
+    """``TorchEmbedder(devices=["cuda:0"] * 2)``: each batch split in two
+    on the card; the same embeddings as one device (cosine >= 0.9999, bf16),
+    every attention launch on the tensor cores."""
+    from archi_tpu_torch.models.bert import BertConfig
+    from archi_tpu_torch.models.embedder import TorchEmbedder
+    from archi_tpu_torch.ops import ROUTE_LAUNCHES, reset_launches
+
+    cfg = BertConfig(vocab_size=512, hidden_size=384, num_layers=2,
+                     num_heads=12, intermediate_size=1536,
+                     max_position_embeddings=512)
+    one = TorchEmbedder(config=cfg, device="cuda")
+    two = TorchEmbedder(config=cfg, devices=["cuda:0"] * 2,
+                        tokenizer=one.tokenizer)
+    texts = [f"document {i} " + "words about storage " * (i % 40)
+             for i in range(300)]
+    reset_launches()
+    a = two.encode_numpy(texts)
+    assert ROUTE_LAUNCHES["encoder_attention:tensor_core"] == \
+        LAUNCHES["encoder_attention"] > 0
+    b = one.encode_numpy(texts)
+    cos = (a * b).sum(1) / (np.linalg.norm(a, axis=1) *
+                            np.linalg.norm(b, axis=1))
+    assert cos.min() >= 0.9999, cos.min()

@@ -70,6 +70,10 @@ def test_importing_every_module_loads_no_jax():
                          check=True)
     mods = json.loads(out.stdout.strip().splitlines()[-1])
     assert "archi_tpu_torch.engine.vectorstore" in mods
+    # the multi-device tier
+    assert {f"archi_tpu_torch.engine.{m}" for m in (
+        "distributed", "sharded_index", "sharded_ivf", "sharded_ivfpq",
+        "sharded_xl")} <= set(mods)
     assert not [m for m in mods if _forbidden(m)]
 
 
@@ -97,8 +101,13 @@ def test_default_device_is_cuda_and_raises_without_it(no_cuda):
     from archi_tpu_torch.engine.ann_index import AnnFlatIndex
     from archi_tpu_torch.engine.ivf_index import IVFIndex
     from archi_tpu_torch.engine.ivfpq_index import IVFPQIndex
+    from archi_tpu_torch.engine.distributed import data_mesh
     from archi_tpu_torch.engine.kmeans import kmeans
     from archi_tpu_torch.engine.pq import PQCodec
+    from archi_tpu_torch.engine.sharded_index import ShardedFlatIndex
+    from archi_tpu_torch.engine.sharded_ivf import ShardedIVFIndex
+    from archi_tpu_torch.engine.sharded_ivfpq import ShardedIVFPQIndex
+    from archi_tpu_torch.engine.sharded_xl import ShardedXlPQIndex
 
     x = np.eye(4, 16, dtype=np.float32)
     for make in (default_device, lambda: FlatIndex(16), BM25Index,
@@ -107,7 +116,11 @@ def test_default_device_is_cuda_and_raises_without_it(no_cuda):
                  lambda: AnnFlatIndex(16, snapshot_kind="ivfpq"),
                  lambda: kmeans(x, 2), lambda: PQCodec(np.zeros((2, 4, 8))),
                  lambda: IVFIndex.build(x, None, nlist=2),
-                 lambda: IVFPQIndex.build(x, nlist=2, m=2, ksub=4)):
+                 lambda: IVFPQIndex.build(x, nlist=2, m=2, ksub=4),
+                 data_mesh, lambda: ShardedFlatIndex(16),
+                 lambda: ShardedXlPQIndex(16),
+                 lambda: ShardedIVFIndex.build(x, None, nlist=2),
+                 lambda: ShardedIVFPQIndex.build(x, nlist=2, m=2, ksub=4)):
         with pytest.raises(RuntimeError, match="device='cpu'"):
             make()
     assert default_device("cpu") == torch.device("cpu")

@@ -5,10 +5,14 @@ counterpart of ``tests/integration/test_micro_batch_serving.py``.
 builds the store; the JAX package's framework-free upper layers take it
 through ``build_context(vectorstore=...)``: a local directory is ingested
 by the data manager and ``/api/query/hybrid`` is served by the
-data-manager app.  For flat, hot_tail, ivf and ivfpq_xl, concurrent HTTP
-queries coalesce (the port's METRICS: mean batch > 1), batched results
-equal an unbatched port stack, and for flat and hot_tail they also equal
-the JAX stack by score level (4 decimals, as the reference test compares).
+data-manager app.  For flat, hot_tail, ivf, ivfpq_xl, sharded and
+ivfpq_xl_sharded (four CPU shards, ``devices=["cpu"] * 4``), concurrent
+HTTP queries coalesce (the port's METRICS: mean batch > 1), batched results
+equal an unbatched port stack, and for flat, hot_tail and sharded they also
+equal the JAX stack by score level (4 decimals, as the reference test
+compares).  The two sharded types also take uploads over HTTP, serve
+``/api/query/hybrid`` and ``/semantic`` and drop a deleted document after a
+resync, as ``tests/integration/test_sharded_serving.py`` does.
 
 The two wirings a service over the port's store needs: with the service's
 registry handed to the port (``use_registry``), ``GET /metrics`` shows the
@@ -17,6 +21,8 @@ wrapped by ``attach_reranker`` returns the JAX stack's k reranked documents
 (``build_vectorstore`` logs an error until then).
 """
 
+import base64
+import os
 import re
 import threading
 
@@ -38,6 +44,8 @@ from archi_tpu.utils.metrics import METRICS as SERVICE_METRICS
 from archi_tpu_torch.bin.bootstrap import attach_reranker, build_vectorstore
 from archi_tpu_torch.engine.ann_index import AnnFlatIndex
 from archi_tpu_torch.engine.segmented_index import SegmentedFlatIndex
+from archi_tpu_torch.engine.sharded_index import ShardedFlatIndex
+from archi_tpu_torch.engine.sharded_xl import ShardedXlPQIndex
 from archi_tpu_torch.engine.xl_index import XlPQIndex
 from archi_tpu_torch.utils.metrics import METRICS, use_registry
 
@@ -53,10 +61,25 @@ INDEX_CONFIGS = {
     "ivfpq_xl": {"type": "ivfpq_xl", "nlist": 4, "block": 128,
                  "pq_m": 8, "pq_refine_m": 8, "nprobe_blocks": 16,
                  "min_snapshot_rows": 16, "async_refresh": False},
+    # corpus rows over four CPU shards; per-shard fused top-k + merge
+    "sharded": {"type": "sharded", "tile_n": 256},
+    # one XL index a shard; the 24-row ingest lands whole on one shard
+    "ivfpq_xl_sharded": {"type": "ivfpq_xl_sharded", "nlist": 4,
+                         "block": 128, "pq_m": 8, "pq_refine_m": 8,
+                         "nprobe_blocks": 16, "min_snapshot_rows": 16},
 }
 INDEX_TYPES = {"flat": "FlatIndex", "ivf": AnnFlatIndex.__name__,
                "hot_tail": SegmentedFlatIndex.__name__,
-               "ivfpq_xl": XlPQIndex.__name__}
+               "ivfpq_xl": XlPQIndex.__name__,
+               "sharded": ShardedFlatIndex.__name__,
+               "ivfpq_xl_sharded": ShardedXlPQIndex.__name__}
+#: the shard devices of the multi-device types (a device may repeat)
+SHARDS = ["cpu"] * 4
+
+
+def _port_store(dm):
+    devices = SHARDS if "sharded" in dm["index"].get("type", "") else None
+    return build_vectorstore(dm, device="cpu", devices=devices)
 
 
 @pytest.fixture(scope="module", params=list(INDEX_CONFIGS))
@@ -80,7 +103,7 @@ def stacks(request, tmp_path_factory):
               "sources": {"local_files": {"paths": [str(corpus)]}},
               "serving": {"micro_batch": {
                   "enabled": batched, "max_wait_ms": 15, "workers": 2}}}
-        store = build_vectorstore(dm, device="cpu") if port else None
+        store = _port_store(dm) if port else None
         ctx = build_context(overrides={"data_manager": dm}, vectorstore=store)
         ctx.data_manager.run_ingestion()
         app, _ = build_data(ctx=ctx, initial_ingestion=False)
@@ -88,7 +111,7 @@ def stacks(request, tmp_path_factory):
         return ctx, f"http://127.0.0.1:{app.serve('127.0.0.1', 0, background=True)}"
 
     out = {"batched": make("batched", batched=True), "plain": make("plain")}
-    if kind in ("flat", "hot_tail"):
+    if kind in ("flat", "hot_tail", "sharded"):
         out["jax"] = make("jax", port=False)
     for ctx, _url in (out["batched"], out["plain"]):
         index = ctx.vectorstore.index
@@ -102,6 +125,11 @@ def stacks(request, tmp_path_factory):
         elif kind == "ivfpq_xl":
             index.refresh_snapshot()
             assert index._ivf is not None and index._n_snap == 24
+        elif kind == "ivfpq_xl_sharded":
+            index.refresh_snapshots()
+            assert sum(s._n_snap for s in index.shards) == 24
+        if "sharded" in kind:
+            assert index.n_shards == 4
     assert out["batched"][0].vectorstore._batcher is not None
     assert out["plain"][0].vectorstore._batcher is None
     yield out
@@ -177,6 +205,73 @@ def test_batched_results_match_unbatched_and_jax_stacks(stacks):
         _assert_same_levels(rb, _query(url_p, q), q)
         if "jax" in stacks:
             _assert_same_levels(rb, _query(stacks["jax"][1], q), q)
+
+
+# ------------------------------------------ the sharded types over HTTP
+SHARDED_INDEX = {
+    "sharded": {"type": "sharded", "dtype": "float32", "tile_n": 256},
+    "ivfpq_xl_sharded": {
+        "type": "ivfpq_xl_sharded", "dtype": "float32", "tile_n": 64,
+        "nlist": 8, "block": 32, "pq_m": 8, "pq_refine_m": 8,
+        "nprobe_blocks": 1000000, "block_rank_sub": 1,
+        "min_snapshot_rows": 4, "build_block_rows": 4}}
+DOCS = (
+    ("quota.md", "gpu quota allocation requests are reviewed weekly by "
+                 "the resource board and granted per project"),
+    ("slurm.md", "slurm array jobs are submitted with sbatch and "
+                 "bounded by the task limit configuration"),
+    ("storage.md", "eos storage namespaces enforce per user quotas on "
+                   "the fuse mount"),
+    ("mail.md", "the mailing list archive is searchable by thread"))
+
+
+@pytest.mark.parametrize("kind", list(SHARDED_INDEX))
+def test_sharded_ingest_query_delete_over_http(kind, tmp_path):
+    index = dict(SHARDED_INDEX[kind])
+    if kind == "ivfpq_xl_sharded":
+        index["store_dir"] = str(tmp_path / "planes")
+    dm = {"data_path": str(tmp_path / "data"),
+          "db_path": str(tmp_path / "catalog.db"),
+          "embedding_name": "hash", "embedding_kwargs": {"dim": 64},
+          "embedding_dimensions": 64, "index": index}
+    store = _port_store(dm)
+    ctx = build_context(overrides={"data_manager": dm}, vectorstore=store)
+    app, _ = build_data(ctx=ctx, initial_ingestion=False)
+    url = f"http://127.0.0.1:{app.serve('127.0.0.1', 0, background=True)}"
+    try:
+        assert type(store.index).__name__ == INDEX_TYPES[kind]
+        assert store.index.n_shards == 4
+        for name, text in DOCS:
+            r = requests.post(url + "/api/upload", json={
+                "filename": name,
+                "content_b64": base64.b64encode(text.encode()).decode(),
+                "sync": False}, timeout=30)
+            assert r.status_code == 200
+        assert ctx.data_manager.index_manager.update_vectorstore()[
+            "added"] == 4
+        if kind == "sharded":
+            assert [e.device.type for e in store.index._embs] == ["cpu"] * 4
+        else:
+            # per-shard host planes are memmaps on disk
+            assert any(p.endswith(".bf16")
+                       for p in os.listdir(store.index.store_dir))
+        r = requests.post(url + "/api/query/hybrid", json={
+            "query": "how do I submit slurm array jobs", "k": 2}, timeout=30)
+        assert "sbatch" in r.json()[0]["page_content"]
+        r2 = requests.post(url + "/api/query/semantic", json={
+            "query": "gpu quota", "k": 1}, timeout=30)
+        assert "quota" in r2.json()[0]["page_content"]
+        # delete + resync drops the document from every shard
+        h = [d for d in ctx.catalog.list_documents()
+             if d["display_name"] == "slurm.md"][0]["resource_hash"]
+        requests.delete(url + f"/api/documents/{h}", timeout=30)
+        ctx.data_manager.index_manager.update_vectorstore()
+        r3 = requests.post(url + "/api/query/hybrid", json={
+            "query": "sbatch slurm array", "k": 4}, timeout=30)
+        assert all("sbatch" not in d["page_content"] for d in r3.json())
+    finally:
+        app.shutdown()
+        ctx.scheduler.stop()
 
 
 # ------------------------------------------------ /metrics over the port
