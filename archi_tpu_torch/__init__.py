@@ -4,7 +4,9 @@ A port of the JAX package's hybrid-retrieval main path (WordPiece → BERT
 encoder → flat index + BM25 → fused top-k) to PyTorch, with the two Pallas
 kernels of that path rewritten as CUDA C++ for Hopper (``csrc/``).  Module
 names mirror ``archi_tpu`` so each file's counterpart is easy to find; the
-store is ``archi_tpu_torch.engine.vectorstore.TorchVectorStore``.
+store is ``archi_tpu_torch.engine.vectorstore.TorchVectorStore``, and the
+data-manager service that owns it is
+``archi_tpu_torch.bin.service_data_manager``.
 
 Entry points run on ``cuda`` unless the caller passes ``device="cpu"``; on
 the CPU every kernel wrapper takes its plain PyTorch version.  This package

@@ -1,2 +1,2 @@
-"""Entry-point helpers of the port (the engine half of the service
-bootstrap)."""
+"""Entry points of the port: the service bootstrap and the data-manager
+service."""

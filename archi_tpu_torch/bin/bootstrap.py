@@ -1,11 +1,16 @@
-"""Build the port's vector store from a ``data_manager`` config section.
+"""Service bootstrap of the port: build the data-manager's stack from a
+config.
 
-Counterpart of the engine half of ``archi_tpu/bin/bootstrap.py``
-(``_build_index`` and the store part of ``build_context``): resolve the
+Counterpart of ``archi_tpu/bin/bootstrap.py``.  ``build_vectorstore`` turns
+a ``data_manager`` config section into the port's store (resolve the
 embedder, restore ``<data_path>/engine_checkpoint`` or build a fresh index,
-and turn on ``serving.micro_batch``.  The framework-free upper layers (data
-manager, web apps) take the result through their injection point, on a
-machine that has them::
+turn on ``serving.micro_batch``); ``build_context`` builds on it what the
+data-manager service (``bin/service_data_manager.py``) runs: the merged
+config, the app database, the config service, the catalog, the store, the
+data manager and the scheduler.  The chat-side fields of the JAX package's
+``ServiceContext`` (users, conversations, traces, prompts, BYOK, providers)
+and its Postgres backends are not ported yet.  On a machine with JAX the
+JAX package's upper layers take the port's store too::
 
     store = build_vectorstore(config["data_manager"])
     ctx = archi_tpu.bin.bootstrap.build_context(overrides=config,
@@ -14,11 +19,13 @@ machine that has them::
 The device is an argument: the card by default (raising without CUDA), or
 ``"cpu"``.  No environment variable moves the port to the CPU.
 
-Two things the upper layers do not know about the port's store, and the
-caller wires once:
+Two things the JAX package's upper layers do not know about the port's
+store, and a caller that injects it there wires once:
 
-- ``/metrics`` renders the JAX package's registry: hand it to the port with
-  ``archi_tpu_torch.utils.metrics.use_registry(archi_tpu.utils.metrics.METRICS)``;
+- their ``/metrics`` renders the JAX package's registry: hand it to the
+  port with
+  ``archi_tpu_torch.utils.metrics.use_registry(archi_tpu.utils.metrics.METRICS)``
+  (the port's own data-manager app renders the port's registry);
 - the JAX pipelines build their MaxSim rerank step only for an embedder
   with ``params``, so with ``retrievers.hybrid_retriever.rerank.enabled``
   they would return the over-fetched pool unranked: ``attach_reranker``
@@ -27,11 +34,18 @@ caller wires once:
 
 from __future__ import annotations
 
+import dataclasses
 import logging
 import os
+from typing import Optional
 
 import torch
 
+from archi_tpu_torch.config.manager import ConfigurationManager
+from archi_tpu_torch.config.service import ConfigService
+from archi_tpu_torch.data.catalog import CatalogService
+from archi_tpu_torch.data.data_manager import DataManager
+from archi_tpu_torch.data.scheduler import CronScheduler
 from archi_tpu_torch.engine.ann_index import AnnFlatIndex
 from archi_tpu_torch.engine.bm25 import BM25Index
 from archi_tpu_torch.engine.distributed import data_mesh
@@ -43,7 +57,9 @@ from archi_tpu_torch.engine.sharded_xl import ShardedXlPQIndex
 from archi_tpu_torch.engine.vectorstore import TorchVectorStore
 from archi_tpu_torch.engine.xl_index import XlPQIndex
 from archi_tpu_torch.models.registry import resolve_embedder
+from archi_tpu_torch.utils.app_db import AppDatabase
 from archi_tpu_torch.utils.hardware import default_device
+from archi_tpu_torch.utils.logging_utils import setup_logging
 
 _logger = logging.getLogger(__name__)
 
@@ -254,10 +270,102 @@ def build_vectorstore(dm_cfg: dict, *, device=None,
                               devices=devices),
             bm25=BM25Index(stemming=stemming, device=device),
             device=device)
+    _micro_batching(store, dm_cfg)
+    return store
+
+
+def _micro_batching(store, dm_cfg: dict) -> None:
+    """Turn on ``serving.micro_batch`` when the config enables it."""
     mb_cfg = (dm_cfg.get("serving") or {}).get("micro_batch") or {}
     if mb_cfg.get("enabled"):
         store.enable_micro_batching(
             max_batch=mb_cfg.get("max_batch", 32),
             max_wait_ms=mb_cfg.get("max_wait_ms", 4.0),
             workers=mb_cfg.get("workers", 2))
-    return store
+
+
+@dataclasses.dataclass
+class ServiceContext:
+    """What the data-manager service runs on (the JAX package's
+    ``ServiceContext`` without its chat-side fields)."""
+    config: dict
+    app_db: AppDatabase
+    config_service: ConfigService
+    catalog: CatalogService
+    vectorstore: TorchVectorStore
+    data_manager: DataManager
+    scheduler: CronScheduler
+
+
+def open_app_database(path: str) -> AppDatabase:
+    """The SQLite app database at ``path``.  A Postgres DSN raises: the
+    Postgres backends are not ported yet, and a DSN is never served by a
+    SQLite file instead."""
+    if path.startswith(("postgres://", "postgresql://")):
+        raise NotImplementedError(
+            f"app_db {path.split('@')[-1]!r}: the Postgres backends "
+            "(utils/app_db_postgres.py, utils/connection_pool.py, "
+            "data/catalog_postgres.py) are not ported to archi_tpu_torch "
+            "yet; they come after the chat slice (ROADMAP.md).  Point "
+            "app_db at a SQLite path")
+    return AppDatabase(path)
+
+
+def build_context(config_paths=(), overrides: Optional[dict] = None, *,
+                  vectorstore: Optional[TorchVectorStore] = None,
+                  device=None, devices=None) -> ServiceContext:
+    """Config files (YAML, which needs PyYAML) merged under ``overrides``
+    over the defaults → the data-manager service's context.
+
+    ``vectorstore``: a store built by the caller (the config's
+    ``serving.micro_batch`` is applied to it, as the JAX package does);
+    else ``build_vectorstore(config["data_manager"], device=device,
+    devices=devices)``, which restores ``<data_path>/engine_checkpoint``
+    when it exists.  ``app_db`` (default ``<data_path>/app.db``) is a
+    SQLite path."""
+    cm = ConfigurationManager(config_paths, overrides)
+    cm.validate()
+    config = cm.config
+    setup_logging(config.get("verbosity"))
+
+    dm_cfg = config["data_manager"]
+    data_path = dm_cfg["data_path"]
+    os.makedirs(data_path, exist_ok=True)
+    app_db = open_app_database(
+        config.get("app_db") or os.path.join(data_path, "app.db"))
+    config_service = ConfigService(app_db)
+    config_service.seed(config)
+
+    catalog = CatalogService(dm_cfg["db_path"])
+    if vectorstore is None:
+        vectorstore = build_vectorstore(dm_cfg, device=device,
+                                        devices=devices)
+    else:
+        _micro_batching(vectorstore, dm_cfg)
+    data_manager = DataManager(
+        data_path=data_path,
+        catalog=catalog,
+        vectorstore=vectorstore,
+        sources_config=dm_cfg.get("sources", {}),
+        chunk_size=dm_cfg.get("chunk_size", 1000),
+        chunk_overlap=dm_cfg.get("chunk_overlap", 0),
+        parallel_workers=dm_cfg.get("parallel_workers", 32),
+    )
+
+    scheduler = CronScheduler()
+    schedules = dm_cfg.get("schedules") or {}
+    if schedules:
+        scheduler.set_config_loader(
+            lambda: config_service.get(
+                "data_manager.schedules", schedules) or schedules,
+            lambda name, spec: (lambda **kw: data_manager.run_ingestion()),
+        )
+    return ServiceContext(
+        config=config,
+        app_db=app_db,
+        config_service=config_service,
+        catalog=catalog,
+        vectorstore=vectorstore,
+        data_manager=data_manager,
+        scheduler=scheduler,
+    )

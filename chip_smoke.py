@@ -50,7 +50,16 @@ Phases (each fails the run with a non-zero exit):
      while 64 clients query; (c) ``type: ivfpq_xl`` at the bootstrap's
      defaults, 2^20 clustered rows, a snapshot, 4096 documents in the exact
      tail, micro-batched hybrid and semantic queries, recall, exact scores
-     and a save/load round trip;
+     and a save/load round trip; (d) the port's data-manager service over
+     HTTP (``bin/service_data_manager.build_app``, flat bf16, micro-batching
+     at the defaults): 8,192 local files of about 4 KB (cut from 16,384)
+     ingested by its initial ingestion (every file ``embedded``, the count
+     equal to the corpus's chunks, the index at phase 2's top-k shape), 64
+     clients x 8 ``POST /api/query/hybrid`` through
+     ``urllib``, each answer equal to the direct path, a restart that
+     restores the checkpoint with a zero diff and the same top-10, then
+     semantic queries, 16 uploads and a resync, a delete, ``/metrics`` and
+     the ``DATA_MANAGER_TOKEN`` gate;
   8. the trainer (``models/train_encoder.py``) at MiniLM-L6's widths over
      phase 3's first 1024 documents: step 0 at f32 on the card against the
      CPU (loss and gradients, 1e-4 relative), 100 bf16 steps (the loss
@@ -122,6 +131,14 @@ XL_ROWS = 1 << 20          # clustered rows of the XL store (7c)
 XL_DOCS = 4096             # documents in its exact tail
 RERANK_QUERIES = 8
 RERANK_TOP = 50
+# 7d: local files of about 4 KB in the corpus (cut from 16,384: 7d alone
+# took 502 s of the run at that size)
+SVC_FILES = 8192
+# 7d's flat index, at which phase 2 holds fused_topk: the corpus's chunks
+# in a capacity of 2^16 rows
+SVC_ROWS = 40_861
+SVC_CAPACITY = 1 << 16
+SVC_UPLOADS = 16           # 7d: documents uploaded over HTTP
 # phase 8, the trainer: MiniLM-L6's widths, phase 3's first documents
 TRAIN_HIDDEN = 384
 TRAIN_LAYERS = 6
@@ -1531,6 +1548,321 @@ def service_xl(results, vocab):
     return {"service_xl": (launches, routes)}
 
 
+def http_json(url, path, body=None, *, method=None, token=None,
+              timeout=600):
+    """One request to a service with ``urllib`` (the card's machine has no
+    ``requests``) → (status, decoded JSON body)."""
+    import urllib.error
+    import urllib.request
+
+    data = None if body is None else json.dumps(body).encode()
+    req = urllib.request.Request(url + path, data=data, method=method)
+    req.add_header("Content-Type", "application/json")
+    if token is not None:
+        req.add_header("X-Data-Token", token)
+    try:
+        with urllib.request.urlopen(req, timeout=timeout) as r:
+            return r.status, json.loads(r.read())
+    except urllib.error.HTTPError as e:
+        return e.code, json.loads(e.read() or b"null")
+
+
+class HttpStore:
+    """The data-manager service's query routes in the store's result shape
+    ((Document, score) lists): what ``RemoteVectorStore`` does, over
+    ``urllib``."""
+
+    def __init__(self, url):
+        self.url = url
+
+    def _query(self, route, query, k):
+        from archi_tpu_torch.utils.documents import Document
+
+        code, body = http_json(self.url, route, {"query": query, "k": k})
+        if code != 200:
+            raise RuntimeError(f"{route}: HTTP {code}: {body}")
+        return [(Document(h["page_content"], h["metadata"]), h["score"])
+                for h in body]
+
+    def hybrid_search(self, query, k=4):
+        return self._query("/api/query/hybrid", query, k)
+
+    def similarity_search_with_score(self, query, k=4):
+        return self._query("/api/query/semantic", query, k)
+
+
+def wait_ready(url, part, timeout=900):
+    """Poll ``/api/ingestion/status`` until the initial ingestion's hold is
+    released; fail on ``failed`` or after ``timeout`` seconds.  → (the last
+    status, {status: seconds after the first poll when first seen})."""
+    t0 = time.perf_counter()
+    seen = {}
+    while True:
+        code, status = http_json(url, "/api/ingestion/status")
+        check(code == 200, f"{part}: status answered {code}")
+        seen.setdefault(status["status"], time.perf_counter() - t0)
+        if status["status"] == "done":
+            return status, seen
+        check(status["status"] != "failed", f"{part}: ingestion failed")
+        check(time.perf_counter() - t0 < timeout,
+              f"{part}: not ready after {timeout} s ({status['status']})")
+        time.sleep(0.1)
+
+
+def scrape_metrics(url) -> dict:
+    import urllib.request
+
+    with urllib.request.urlopen(url + "/metrics", timeout=60) as r:
+        text = r.read().decode()
+    out = {}
+    for line in text.splitlines():
+        m = re.match(r"^(\S+) (\S+)$", line)
+        if m:
+            out[m.group(1)] = float(m.group(2))
+    return out
+
+
+def service_data_manager(results, vocab):
+    """7d: the port's data-manager service over HTTP.  ``build_app`` over a
+    corpus of SVC_FILES local files (phase 3's encoder and vocabulary),
+    ingested by the service's initial ingestion; 64 clients x 8 hybrid
+    requests over HTTP, each equal to the direct path; a restart that
+    restores the checkpoint with a zero diff; then semantic queries,
+    uploads, a delete, ``/metrics`` and the token gate over HTTP.
+    → launches by part."""
+    import base64
+
+    import numpy as np
+
+    from archi_tpu_torch.bin.service_data_manager import build_app
+    from archi_tpu_torch.data.chunking import character_split
+    from archi_tpu_torch.engine import topk as engine_topk
+    from archi_tpu_torch.engine.flat_index import FlatIndex
+    from archi_tpu_torch.ops import LAUNCHES, ROUTE_LAUNCHES, reset_launches
+    from archi_tpu_torch.utils.metrics import METRICS
+
+    out = {"files": SVC_FILES}
+    root = os.path.join(SERVICE_TMP, "dm")
+    corpus = os.path.join(root, "corpus")
+    os.makedirs(corpus)
+    rng = np.random.default_rng(SEED + 11)
+    # about 4 KB a file: the words' mean length under phase 3's Zipf weights
+    p = 1.0 / np.arange(1, len(vocab) + 1)
+    mean_len = float((p / p.sum()) @ np.array([len(w) for w in vocab]))
+    n_words = int(4096 / (mean_len + 1))
+    t0 = time.perf_counter()
+    texts = synthetic_texts(rng, vocab, SVC_FILES, n_words)
+    n_chunks = 0
+    for i, text in enumerate(texts):
+        with open(os.path.join(corpus, f"f{i:05d}.txt"), "w") as f:
+            f.write(text)
+        n_chunks += len(character_split(text, 1000, 0))
+    out["corpus_bytes"] = sum(len(t) for t in texts)
+    log(f"  7d: {SVC_FILES} files, {out['corpus_bytes'] / SVC_FILES:.0f} "
+        f"bytes and {n_chunks / SVC_FILES:.2f} chunks a file, written in "
+        f"{time.perf_counter() - t0:.1f} s")
+    overrides = {"data_manager": {
+        "embedding_name": "minilm",
+        "model_dir": os.path.join(SERVICE_TMP, "model"),
+        "data_path": os.path.join(root, "data"),
+        "db_path": os.path.join(root, "catalog.db"),
+        "index": {"type": "flat", "dtype": "bfloat16"},
+        "sources": {"local_files": {"paths": [corpus]}},
+        "serving": {"micro_batch": {"enabled": True}}}}
+    os.environ.pop("DATA_MANAGER_TOKEN", None)
+
+    # ---- the service: initial ingestion, warmup, 64 clients, counted
+    engine_topk.FUSED_FALLBACKS["count"] = 0
+    reset_launches()
+    b0 = METRICS.counter_value("archi_micro_batches_total")
+    r0 = METRICS.counter_value("archi_micro_batched_requests_total")
+    t0 = time.perf_counter()
+    app, ctx = build_app(overrides=overrides, device=DEV)
+    url = f"http://127.0.0.1:{app.serve('127.0.0.1', 0, background=True)}"
+    status, seen = wait_ready(url, "7d")
+    out["ready_s"] = time.perf_counter() - t0
+    # the sync began when the status first read "embedding" (polls 0.1 s
+    # apart): what came before it was the collection of the files
+    out["collect_s"] = seen.get("embedding")
+    check(out["collect_s"] is not None, "7d: the sync was never seen")
+    st = ctx.vectorstore
+    b = st._batcher
+    check(type(st.index) is FlatIndex and b is not None
+          and (b.max_batch, b.max_wait_s, len(b._workers)) == (32, 0.004, 2),
+          "7d: not a flat store micro-batched at the defaults")
+    check(status["added"] == SVC_FILES and status["failed"] == 0
+          and status["by_status"] == {"embedded": SVC_FILES},
+          f"7d: ingest {status}")
+    code, count = http_json(url, "/api/query/count")
+    check(code == 200 and count["count"] == st.count() == n_chunks,
+          f"7d: count {count} against {st.count()} in the store and "
+          f"{n_chunks} chunks of the corpus")
+    check((n_chunks, st.index.capacity) == (SVC_ROWS, SVC_CAPACITY),
+          f"7d: {n_chunks} rows in a capacity of {st.index.capacity}, not "
+          f"the shape at which phase 2 holds fused_topk")
+    out.update(chunks=n_chunks, ingest_s=status["elapsed_s"],
+               docs_per_s=SVC_FILES / status["elapsed_s"],
+               chunks_per_s=n_chunks / status["elapsed_s"])
+    log(f"  7d: ingested {SVC_FILES} files ({n_chunks} chunks) through the "
+        f"service in {out['ingest_s']:.1f} s ({out['docs_per_s']:.0f} "
+        f"docs/s, {out['chunks_per_s']:.0f} chunks/s; the collection "
+        f"about {out['collect_s']:.1f} s of it), ready after "
+        f"{out['ready_s']:.1f} s")
+
+    miss = "zzzzqx unmatched service query"
+    check(float(st.bm25.scores(miss, st.index.capacity).max()) <= 0.0,
+          "7d: the BM25-miss query matches")
+    reqs = []
+    for c in range(SVC_CLIENTS):
+        calls = [" ".join(texts[int(i)].split()[:96])
+                 for i in rng.integers(0, SVC_FILES, 4)]
+        calls += [short_query(rng, vocab) for _ in range(3)]
+        calls.append(miss if c % 8 == 0 else short_query(rng, vocab))
+        reqs.append([("hybrid", q) for q in calls])
+    n_req = SVC_CLIENTS * SVC_CALLS
+    got, lat, wall = run_clients(HttpStore(url), reqs)
+    sync()
+    launches, routes = dict(LAUNCHES), dict(ROUTE_LAUNCHES)
+    batches = METRICS.counter_value("archi_micro_batches_total") - b0
+    served = METRICS.counter_value("archi_micro_batched_requests_total") - r0
+    check_routes("7d", launches, routes)
+    check(engine_topk.FUSED_FALLBACKS["count"] == 0, "7d: top-k fell back")
+
+    # every answer against the direct path in-process (not counted)
+    bad = [(c, j) for c in range(SVC_CLIENTS)
+           for j, (_kind, q) in enumerate(reqs[c])
+           if not same_ranking(got[(c, j)], st._hybrid_search_impl(q, k=10))]
+    check(not bad, f"7d: HTTP answers differ from the direct path at "
+                   f"{bad[:8]}")
+    check(served >= n_req and batches > 0 and served / batches > 1,
+          f"7d: {served} requests in {batches} batches")
+    out.update(requests=n_req, batches=batches, mean_batch=served / batches,
+               qps_http=n_req / wall, **latency_ms(lat))
+    log(f"  7d: {n_req} HTTP hybrid requests from {SVC_CLIENTS} clients at "
+        f"{out['qps_http']:.1f} requests/s, p50 {out['p50_ms']:.1f} ms, "
+        f"p99 {out['p99_ms']:.1f} ms, mean micro-batch "
+        f"{out['mean_batch']:.1f}; equal to the direct path")
+    keep = [(c, j) for c in range(4) for j in range(SVC_CALLS)]
+
+    # ---- restart on the same data path: the checkpoint, a zero diff
+    app.shutdown()
+    ctx.scheduler.stop()
+    b.close()
+    del st, ctx, app, b
+    engine_topk.FUSED_FALLBACKS["count"] = 0
+    reset_launches()
+    t0 = time.perf_counter()
+    app, ctx = build_app(overrides=overrides, device=DEV)
+    out["restore_s"] = time.perf_counter() - t0
+    url = f"http://127.0.0.1:{app.serve('127.0.0.1', 0, background=True)}"
+    status, _seen = wait_ready(url, "7d restart")
+    out["restart_ready_s"] = time.perf_counter() - t0
+    st = ctx.vectorstore
+    check((status["added"], status["removed"], status["failed"]) == (0, 0, 0)
+          and st.count() == n_chunks,
+          f"7d: the restart's sync was not a zero diff: {status}")
+    http = HttpStore(url)
+    for c, j in keep:
+        check(same_ranking(http.hybrid_search(reqs[c][j][1], k=10),
+                           got[(c, j)]),
+              f"7d: after the restart query {(c, j)} answers otherwise")
+    log(f"  7d: restarted, restored {st.count()} rows in "
+        f"{out['restore_s']:.1f} s, ready after {out['restart_ready_s']:.1f} "
+        f"s (sync +0 -0), {len(keep)} queries give the same top-10")
+
+    # ---- semantic queries, uploads, a delete, /metrics over HTTP
+    before = scrape_metrics(url)
+    for c in range(8):
+        check(len(http.similarity_search_with_score(reqs[c][0][1], k=10))
+              == 10, "7d: a semantic query returned fewer than 10")
+    uploads = synthetic_texts(rng, vocab, SVC_UPLOADS, n_words,
+                              prefix="upload")
+    hashes = []
+    for i, text in enumerate(uploads):
+        code, body = http_json(url, "/api/upload", {
+            "filename": f"upload{i:02d}.txt", "sync": False,
+            "content_b64": base64.b64encode(text.encode()).decode()})
+        check(code == 200, f"7d: upload answered {code}")
+        hashes.append(body["resource_hash"])
+    t0 = time.perf_counter()
+    code, sync_res = http_json(url, "/api/ingestion/trigger", {})
+    out["resync_s"] = time.perf_counter() - t0
+    up_chunks = sum(len(character_split(t, 1000, 0)) for t in uploads)
+    check(code == 200 and sync_res["added"] == SVC_UPLOADS
+          and sync_res["removed"] == 0
+          and st.count() == n_chunks + up_chunks,
+          f"7d: the resync after the uploads {sync_res}")
+
+    def top_hashes(text):
+        return [d.metadata["resource_hash"] for d, _s in http.hybrid_search(
+            " ".join(text.split()[:24]), k=10)]
+
+    for h, text in zip(hashes, uploads):
+        check(h in top_hashes(text),
+              "7d: an uploaded document is not in its own query's top-10")
+    gone, gone_chunks = hashes[0], len(character_split(uploads[0], 1000, 0))
+    code, body = http_json(url, f"/api/documents/{gone}", method="DELETE")
+    check(code == 200 and body == {"deleted": True}, f"7d: delete {body}")
+    want = n_chunks + up_chunks - gone_chunks
+    deadline = time.perf_counter() + 120
+    while http_json(url, "/api/query/count")[1]["count"] != want:
+        check(time.perf_counter() < deadline,
+              "7d: the deleted document's chunks stayed")
+        time.sleep(0.1)
+    check(gone not in top_hashes(uploads[0]),
+          "7d: the deleted document is still found")
+    after = scrape_metrics(url)
+    sync()
+    launches_w, routes_w = dict(LAUNCHES), dict(ROUTE_LAUNCHES)
+    check_routes("7d writes", launches_w, routes_w)
+    check(engine_topk.FUSED_FALLBACKS["count"] == 0, "7d: top-k fell back")
+    rose = {k: after.get(k, 0.0) - before.get(k, 0.0) for k in (
+        'archi_engine_queries_total{kind="hybrid"}',
+        'archi_engine_queries_total{kind="semantic"}',
+        "archi_micro_batches_total_total",
+        "archi_micro_batched_requests_total_total")}
+    check(all(v > 0 for v in rose.values())
+          and after["archi_index_chunks"] == want,
+          f"7d: /metrics {rose}, {after.get('archi_index_chunks')} chunks")
+
+    # ---- the token gate, on a second app over the same context
+    os.environ["DATA_MANAGER_TOKEN"] = token = "7d-token"
+    try:
+        gated, _ = build_app(ctx=ctx, initial_ingestion=False)
+        gurl = "http://127.0.0.1:%d" % gated.serve("127.0.0.1", 0,
+                                                  background=True)
+        check(http_json(gurl, "/api/query/count")[0] == 401
+              and http_json(gurl, "/api/query/count", token="wrong")[0] == 401
+              and http_json(gurl, "/api/query/count", token=token)
+              == (200, {"count": want})
+              and http_json(gurl, "/healthz")[0] == 200,
+              "7d: the token gate")
+        gated.shutdown()
+    finally:
+        os.environ.pop("DATA_MANAGER_TOKEN", None)
+    app.shutdown()
+    ctx.scheduler.stop()
+    st._batcher.close()
+
+    # what one catalog write costs on this disk: the collection commits
+    # once a file and the sync twice (the statuses embedding, embedded)
+    from archi_tpu_torch.data.catalog import CatalogService
+
+    probe = CatalogService(os.path.join(root, "probe.db"))
+    t0 = time.perf_counter()
+    for i in range(256):
+        probe.upsert_resource(f"probe{i}", display_name=f"p{i}")
+    out["catalog_commit_ms"] = (time.perf_counter() - t0) / 256 * 1e3
+    probe.close()
+    log(f"  7d: semantic, {SVC_UPLOADS} uploads (resync "
+        f"{out['resync_s']:.1f} s), a delete, /metrics and the token gate "
+        f"over HTTP")
+    results["service"]["data_manager"] = out
+    log("  7d: " + json.dumps(out))
+    return {"service_dm": (launches, routes),
+            "service_dm_restart_writes": (launches_w, routes_w)}
+
+
 # ------------------------------------------------------------------ phase 8
 def query_views(rng, docs):
     """A keyword view of each document, as the trainer's ICT views are
@@ -2299,6 +2631,14 @@ def main() -> int:
         topk_case("topk_b32_grown_shard_bf16", 32, 1 << 21, 1 << 16, bf16,
                   False),
         topk_case("topk_b32_empty_shard_bf16", 32, 1 << 21, 0, bf16, False),
+        # 7d's flat bf16 index (its shape checked there); hybrid batches of up to 32 with a per-query
+        # BM25 bias, a direct hybrid query, a semantic batch
+        topk_case("topk_b32_perquery_dm_bf16", 32, SVC_CAPACITY, SVC_ROWS,
+                  bf16, True, timed=True),
+        topk_case("topk_b1_perquery_dm_bf16", 1, SVC_CAPACITY, SVC_ROWS,
+                  bf16, True),
+        topk_case("topk_b8_shared_dm_bf16", 8, SVC_CAPACITY, SVC_ROWS, bf16,
+                  False),
     ]
     attn = [
         # ingest (256 chunks in the 128 bucket) and queries (the 64 bucket,
@@ -2318,6 +2658,11 @@ def main() -> int:
         # phase 9e: a 256-document batch encoded in two halves
         attention_case("attn_b128_s128_bf16", 128, 128, torch.bfloat16,
                        timed=True),
+        # 7d's ingest: a merged batch of 25 files' 1,000-character chunks
+        # (about 125) in the 256 bucket, and a group past 128 chunks
+        attention_case("attn_b128_s256_bf16", 128, 256, torch.bfloat16,
+                       timed=True),
+        attention_case("attn_b256_s256_bf16", 256, 256, torch.bfloat16),
     ]
     adc8 = [
         # path A: cell probing, one query a group (G=1) over 64 cells of up
@@ -2364,6 +2709,7 @@ def main() -> int:
         parts = service_flat(results, docs, vocab)
         parts.update(service_hot_tail(results, docs, vocab))
         parts.update(service_xl(results, vocab))
+        parts.update(service_data_manager(results, vocab))
     finally:
         shutil.rmtree(SERVICE_TMP, ignore_errors=True)
     torch.cuda.empty_cache()

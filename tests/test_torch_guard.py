@@ -74,7 +74,92 @@ def test_importing_every_module_loads_no_jax():
     assert {f"archi_tpu_torch.engine.{m}" for m in (
         "distributed", "sharded_index", "sharded_ivf", "sharded_ivfpq",
         "sharded_xl")} <= set(mods)
+    # the data-manager service
+    assert {"archi_tpu_torch.bin.service_data_manager",
+            "archi_tpu_torch.web.data_app", "archi_tpu_torch.data.manager",
+            "archi_tpu_torch.data.collectors.tickets",
+            "archi_tpu_torch.config.service"} <= set(mods)
     assert not [m for m in mods if _forbidden(m)]
+
+
+#: what the card's machine lacks: JAX, the JAX package, and the packages
+#: the service imports only inside the functions that need them
+ABSENT = ("jax", "jaxlib", "archi_tpu", "ml_dtypes", "requests", "yaml",
+          "psycopg2", "bs4", "pypdf")
+
+SERVICE_WITHOUT_JAX = """
+import importlib.abc, json, os, sys, time, urllib.request
+
+ABSENT = set(sys.argv[2].split(","))
+
+
+class Absent(importlib.abc.MetaPathFinder):
+    def find_spec(self, name, path=None, target=None):
+        if name.split(".")[0] in ABSENT:
+            raise ImportError(f"no module named {name!r} on this machine")
+        return None
+
+
+sys.meta_path.insert(0, Absent())
+for name in ABSENT:
+    try:
+        __import__(name)
+    except ImportError:
+        continue
+    raise SystemExit(f"{name} imported")
+
+from archi_tpu_torch.bin.service_data_manager import build_app
+
+tmp = sys.argv[1]
+os.makedirs(os.path.join(tmp, "corpus"))
+for i, text in enumerate(("slurm array jobs are submitted with sbatch",
+                          "eos storage quotas are set per user",
+                          "the mailing list archive is searchable")):
+    with open(os.path.join(tmp, "corpus", f"doc{i}.md"), "w") as f:
+        f.write(text)
+app, ctx = build_app(overrides={"data_manager": {
+    "embedding_name": "hash", "data_path": os.path.join(tmp, "data"),
+    "db_path": os.path.join(tmp, "catalog.db"),
+    "sources": {"local_files": {"paths": [os.path.join(tmp, "corpus")]}},
+    "serving": {"micro_batch": {"enabled": True}}}}, device="cpu")
+url = f"http://127.0.0.1:{app.serve('127.0.0.1', 0, background=True)}"
+deadline = time.time() + 60
+while True:
+    with urllib.request.urlopen(url + "/api/ingestion/status") as r:
+        status = json.load(r)
+    if status["status"] == "done" or time.time() > deadline:
+        break
+    time.sleep(0.05)
+req = urllib.request.Request(
+    url + "/api/query/hybrid", method="POST",
+    data=json.dumps({"query": "how do I submit slurm jobs", "k": 2}).encode())
+with urllib.request.urlopen(req) as r:
+    hits = json.load(r)
+app.shutdown()
+ctx.scheduler.stop()
+ctx.vectorstore._batcher.close()
+print(json.dumps({"status": status, "hits": hits,
+                  "modules": sorted(sys.modules)}))
+"""
+
+
+def test_service_runs_where_jax_and_the_optional_packages_are_absent(
+        tmp_path):
+    """The card's machine, simulated: in a fresh interpreter where importing
+    JAX, the JAX package, requests, PyYAML, psycopg2, bs4 or pypdf raises,
+    the port's data-manager service ingests a directory and answers
+    ``/api/query/hybrid`` over HTTP."""
+    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    out = subprocess.run(
+        [sys.executable, "-c", SERVICE_WITHOUT_JAX, str(tmp_path),
+         ",".join(ABSENT)], cwd=ROOT, env=env, capture_output=True,
+        text=True, timeout=180)
+    assert out.returncode == 0, out.stderr[-3000:]
+    got = json.loads(out.stdout.strip().splitlines()[-1])
+    assert got["status"]["status"] == "done"
+    assert got["status"]["added"] == 3 and got["status"]["failed"] == 0
+    assert "sbatch" in got["hits"][0]["page_content"]
+    assert not [m for m in got["modules"] if m.split(".")[0] in ABSENT]
 
 
 @pytest.fixture

@@ -48,6 +48,7 @@ from archi_tpu_torch.engine.sharded_index import ShardedFlatIndex
 from archi_tpu_torch.engine.sharded_xl import ShardedXlPQIndex
 from archi_tpu_torch.engine.xl_index import XlPQIndex
 from archi_tpu_torch.utils.metrics import METRICS, use_registry
+from tests.test_torch_data_layer import jax_cache_in_tmp  # noqa: F401
 
 INDEX_CONFIGS = {
     "flat": {},
