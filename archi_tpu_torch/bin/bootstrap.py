@@ -1,16 +1,28 @@
-"""Service bootstrap of the port: build the data-manager's stack from a
-config.
+"""Service bootstrap of the port: build the services' stack from a config.
 
 Counterpart of ``archi_tpu/bin/bootstrap.py``.  ``build_vectorstore`` turns
 a ``data_manager`` config section into the port's store (resolve the
 embedder, restore ``<data_path>/engine_checkpoint`` or build a fresh index,
 turn on ``serving.micro_batch``); ``build_context`` builds on it what the
-data-manager service (``bin/service_data_manager.py``) runs: the merged
-config, the app database, the config service, the catalog, the store, the
-data manager and the scheduler.  The chat-side fields of the JAX package's
-``ServiceContext`` (users, conversations, traces, prompts, BYOK, providers)
-and its Postgres backends are not ported yet.  On a machine with JAX the
-JAX package's upper layers take the port's store too::
+two services run (``bin/service_data_manager.py``, ``bin/service_chat.py``):
+the merged config with the providers configured, the app database, the
+config service, the users, conversations, traces and prompts, the catalog,
+the store, the data manager, the scheduler and BYOK.  The JAX package's
+Postgres backends are not ported yet.
+
+Two departures from the JAX package's ``build_context``:
+
+- BYOK stores keys Fernet-encrypted, which needs ``cryptography``.  Where
+  it does not import, ``byok_store`` and ``byok_resolver`` are ``None``, with one logged warning that names the
+  package: the chat app's BYOK routes then answer 501 "BYOK not
+  configured".  A key is never stored in clear instead.
+- ``serving.micro_batch`` is applied only to a store that can batch.  A
+  chat process in remote mode is handed a ``RemoteVectorStore`` (the
+  data-manager it queries batches for it), so one deployment config serves
+  both services; the JAX package raises ``AttributeError`` there.
+
+On a machine with JAX the JAX package's upper layers take the port's store
+too::
 
     store = build_vectorstore(config["data_manager"])
     ctx = archi_tpu.bin.bootstrap.build_context(overrides=config,
@@ -25,11 +37,12 @@ store, and a caller that injects it there wires once:
 - their ``/metrics`` renders the JAX package's registry: hand it to the
   port with
   ``archi_tpu_torch.utils.metrics.use_registry(archi_tpu.utils.metrics.METRICS)``
-  (the port's own data-manager app renders the port's registry);
+  (the port's own services render the port's registry);
 - the JAX pipelines build their MaxSim rerank step only for an embedder
   with ``params``, so with ``retrievers.hybrid_retriever.rerank.enabled``
   they would return the over-fetched pool unranked: ``attach_reranker``
-  gives each pipeline the port's reranker.
+  gives each pipeline the port's reranker (the port's own pipelines build
+  it themselves, ``pipelines/base.py``).
 """
 
 from __future__ import annotations
@@ -57,9 +70,15 @@ from archi_tpu_torch.engine.sharded_xl import ShardedXlPQIndex
 from archi_tpu_torch.engine.vectorstore import TorchVectorStore
 from archi_tpu_torch.engine.xl_index import XlPQIndex
 from archi_tpu_torch.models.registry import resolve_embedder
+from archi_tpu_torch.providers.byok import BYOKResolver, BYOKStore
+from archi_tpu_torch.providers.registry import configure_providers
 from archi_tpu_torch.utils.app_db import AppDatabase
+from archi_tpu_torch.utils.conversation_service import ConversationService
 from archi_tpu_torch.utils.hardware import default_device
 from archi_tpu_torch.utils.logging_utils import setup_logging
+from archi_tpu_torch.utils.prompt_service import PromptService
+from archi_tpu_torch.utils.trace_service import TraceService
+from archi_tpu_torch.utils.user_service import UserService
 
 _logger = logging.getLogger(__name__)
 
@@ -238,18 +257,20 @@ def build_vectorstore(dm_cfg: dict, *, device=None,
     turns on ``serving.micro_batch`` with the reference's defaults
     (max_batch 32, max_wait_ms 4.0, workers 2).  ``devices``: the shard
     devices of the multi-device index types (``build_index``).  With
-    ``retrievers.hybrid_retriever.rerank.enabled`` it logs an error: the
-    JAX pipelines skip the rerank over this store unless the caller wraps
-    them with ``attach_reranker``."""
+    ``retrievers.hybrid_retriever.rerank.enabled`` it logs a warning for a
+    caller that hands the store to the JAX package's pipelines: they skip
+    the rerank over this store unless wrapped with ``attach_reranker`` (the
+    port's own pipelines rerank)."""
     if device is None and devices:
         device = devices[0]
     device = default_device(device)
     if _rerank_settings(dm_cfg)[0]:
-        _logger.error(
-            "retrievers.hybrid_retriever.rerank.enabled: the JAX pipelines "
-            "skip the MaxSim rerank over the port's store and return the "
-            "over-fetched pool; wrap each pipeline with "
-            "archi_tpu_torch.bin.bootstrap.attach_reranker(pipeline)")
+        _logger.warning(
+            "retrievers.hybrid_retriever.rerank.enabled: the JAX package's "
+            "pipelines skip the MaxSim rerank over the port's store and "
+            "return the over-fetched pool; wrap each of them with "
+            "archi_tpu_torch.bin.bootstrap.attach_reranker(pipeline) (the "
+            "port's own pipelines rerank)")
     embedder = resolve_embedder(dm_cfg, device=device)
     index_cfg = dm_cfg.get("index") or {}
     checkpoint_dir = os.path.join(dm_cfg["data_path"], "engine_checkpoint")
@@ -275,9 +296,11 @@ def build_vectorstore(dm_cfg: dict, *, device=None,
 
 
 def _micro_batching(store, dm_cfg: dict) -> None:
-    """Turn on ``serving.micro_batch`` when the config enables it."""
+    """Turn on ``serving.micro_batch`` when the config enables it, on a
+    store that can batch: a ``RemoteVectorStore`` is passed by (the
+    data-manager it queries batches)."""
     mb_cfg = (dm_cfg.get("serving") or {}).get("micro_batch") or {}
-    if mb_cfg.get("enabled"):
+    if mb_cfg.get("enabled") and hasattr(store, "enable_micro_batching"):
         store.enable_micro_batching(
             max_batch=mb_cfg.get("max_batch", 32),
             max_wait_ms=mb_cfg.get("max_wait_ms", 4.0),
@@ -286,15 +309,40 @@ def _micro_batching(store, dm_cfg: dict) -> None:
 
 @dataclasses.dataclass
 class ServiceContext:
-    """What the data-manager service runs on (the JAX package's
-    ``ServiceContext`` without its chat-side fields)."""
+    """What the data-manager and the chat service run on (the JAX
+    package's ``ServiceContext``).  ``vectorstore`` is a
+    ``TorchVectorStore``, or a ``RemoteVectorStore`` in a chat process in
+    remote mode; ``byok_store`` and ``byok_resolver`` are ``None`` without
+    ``cryptography``."""
     config: dict
     app_db: AppDatabase
     config_service: ConfigService
+    users: UserService
+    conversations: ConversationService
+    traces: TraceService
+    prompts: PromptService
     catalog: CatalogService
     vectorstore: TorchVectorStore
     data_manager: DataManager
     scheduler: CronScheduler
+    byok_store: Optional[BYOKStore]
+    byok_resolver: Optional[BYOKResolver]
+
+
+def open_byok_store(path: str) -> Optional[BYOKStore]:
+    """The encrypted BYOK store at ``path`` (keyed by ``ARCHI_SECRET``), or
+    ``None``, with one logged warning, where ``cryptography`` does not
+    import."""
+    try:
+        import cryptography.fernet  # noqa: F401
+    except ImportError:
+        _logger.warning(
+            "BYOK disabled: the package 'cryptography' does not import, and "
+            "user API keys are stored only encrypted; the BYOK routes answer "
+            "501")
+        return None
+    secret = os.environ.get("ARCHI_SECRET", "archi-tpu-dev-secret")
+    return BYOKStore(path, secret=secret)
 
 
 def open_app_database(path: str) -> AppDatabase:
@@ -306,8 +354,7 @@ def open_app_database(path: str) -> AppDatabase:
             f"app_db {path.split('@')[-1]!r}: the Postgres backends "
             "(utils/app_db_postgres.py, utils/connection_pool.py, "
             "data/catalog_postgres.py) are not ported to archi_tpu_torch "
-            "yet; they come after the chat slice (ROADMAP.md).  Point "
-            "app_db at a SQLite path")
+            "yet (ROADMAP.md queue A).  Point app_db at a SQLite path")
     return AppDatabase(path)
 
 
@@ -315,18 +362,20 @@ def build_context(config_paths=(), overrides: Optional[dict] = None, *,
                   vectorstore: Optional[TorchVectorStore] = None,
                   device=None, devices=None) -> ServiceContext:
     """Config files (YAML, which needs PyYAML) merged under ``overrides``
-    over the defaults → the data-manager service's context.
+    over the defaults → the services' context.
 
-    ``vectorstore``: a store built by the caller (the config's
-    ``serving.micro_batch`` is applied to it, as the JAX package does);
-    else ``build_vectorstore(config["data_manager"], device=device,
+    ``vectorstore``: a store built by the caller, a ``TorchVectorStore``
+    (the config's ``serving.micro_batch`` is applied to it, as the JAX
+    package does) or a ``RemoteVectorStore`` (left as it is); else
+    ``build_vectorstore(config["data_manager"], device=device,
     devices=devices)``, which restores ``<data_path>/engine_checkpoint``
     when it exists.  ``app_db`` (default ``<data_path>/app.db``) is a
-    SQLite path."""
+    SQLite path; BYOK keys go to ``<data_path>/byok.db``."""
     cm = ConfigurationManager(config_paths, overrides)
     cm.validate()
     config = cm.config
     setup_logging(config.get("verbosity"))
+    configure_providers(config.get("providers", {}))
 
     dm_cfg = config["data_manager"]
     data_path = dm_cfg["data_path"]
@@ -360,12 +409,20 @@ def build_context(config_paths=(), overrides: Optional[dict] = None, *,
                 "data_manager.schedules", schedules) or schedules,
             lambda name, spec: (lambda **kw: data_manager.run_ingestion()),
         )
+    byok_store = open_byok_store(os.path.join(data_path, "byok.db"))
     return ServiceContext(
         config=config,
         app_db=app_db,
         config_service=config_service,
+        users=UserService(app_db),
+        conversations=ConversationService(app_db),
+        traces=TraceService(app_db),
+        prompts=PromptService(app_db),
         catalog=catalog,
         vectorstore=vectorstore,
         data_manager=data_manager,
         scheduler=scheduler,
+        byok_store=byok_store,
+        byok_resolver=None if byok_store is None else BYOKResolver(
+            byok_store),
     )

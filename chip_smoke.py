@@ -59,7 +59,19 @@ Phases (each fails the run with a non-zero exit):
      ``urllib``, each answer equal to the direct path, a restart that
      restores the checkpoint with a zero diff and the same top-10, then
      semantic queries, 16 uploads and a resync, a delete, ``/metrics`` and
-     the ``DATA_MANAGER_TOKEN`` gate;
+     the ``DATA_MANAGER_TOKEN`` gate; (e) before 7d's restart, the port's
+     chat service on 7d's live data-manager (``bin/service_chat.build_app``
+     in remote mode on 7d's config with ``services.chat.engine_url``):
+     32 clients x 4 ``POST /api/get_chat_response`` over ``urllib`` at the
+     config's ``QAPipeline`` (echo models, hybrid k=5), half of the
+     clients in one conversation each, every answer's sources equal to the
+     direct hybrid search of its condensed query on 7d's store; the stream,
+     the history, feedback, document selection, the proxied
+     ``/api/dm/status``, BYOK (501 without ``cryptography``) and
+     ``/metrics``; the ReAct agent over the remote store, its model
+     scripted to search once; then 8 chats in-process over 7d's store with
+     the MaxSim rerank (over-fetch 20), each equal to the direct rerank,
+     and the shape of every kernel launch of 7e logged;
   8. the trainer (``models/train_encoder.py``) at MiniLM-L6's widths over
      phase 3's first 1024 documents: step 0 at f32 on the card against the
      CPU (loss and gradients, 1e-4 relative), 100 bf16 steps (the loss
@@ -139,6 +151,10 @@ SVC_FILES = 8192
 SVC_ROWS = 40_861
 SVC_CAPACITY = 1 << 16
 SVC_UPLOADS = 16           # 7d: documents uploaded over HTTP
+CHAT_CLIENTS = 32          # 7e: concurrent chat clients
+CHAT_CALLS = 4             # 7e: chats a client
+CHAT_RERANK = 8            # 7e: in-process chats with the MaxSim rerank
+CHAT_OVERFETCH = 20        # 7e: the rerank's pool
 # phase 8, the trainer: MiniLM-L6's widths, phase 3's first documents
 TRAIN_HIDDEN = 384
 TRAIN_LAYERS = 6
@@ -366,7 +382,8 @@ def attention_case(name, b, s, dtype, nh=12, hd=32, timed=False):
     qkv = torch.randn(b, s, 3 * h, device=dev, generator=g).to(dtype)
     q, k, v = (qkv[..., i * h:(i + 1) * h].view(b, s, nh, hd) for i in range(3))
     lens = torch.randint(1, s + 1, (b,), device=dev, generator=g)
-    lens[0] = 0                                   # a fully masked row
+    if b > 1:
+        lens[0] = 0                               # a fully masked row
     mask = (torch.arange(s, device=dev)[None, :] < lens[:, None]).float()
     key_bias = (1.0 - mask) * -1e9
     scale = 1.0 / math.sqrt(hd)
@@ -1549,9 +1566,10 @@ def service_xl(results, vocab):
 
 
 def http_json(url, path, body=None, *, method=None, token=None,
-              timeout=600):
+              timeout=600, user=None):
     """One request to a service with ``urllib`` (the card's machine has no
-    ``requests``) → (status, decoded JSON body)."""
+    ``requests``) → (status, decoded JSON body).  ``user``: the chat app's
+    dev identity header (``X-User-Email``)."""
     import urllib.error
     import urllib.request
 
@@ -1560,6 +1578,8 @@ def http_json(url, path, body=None, *, method=None, token=None,
     req.add_header("Content-Type", "application/json")
     if token is not None:
         req.add_header("X-Data-Token", token)
+    if user is not None:
+        req.add_header("X-User-Email", user)
     try:
         with urllib.request.urlopen(req, timeout=timeout) as r:
             return r.status, json.loads(r.read())
@@ -1744,6 +1764,10 @@ def service_data_manager(results, vocab):
         f"{out['mean_batch']:.1f}; equal to the direct path")
     keep = [(c, j) for c in range(4) for j in range(SVC_CALLS)]
 
+    # ---- 7e: the port's chat service on this live data-manager
+    chat_parts = service_chat(results, url, st, overrides, texts, vocab,
+                              miss)
+
     # ---- restart on the same data path: the checkpoint, a zero diff
     app.shutdown()
     ctx.scheduler.stop()
@@ -1860,7 +1884,400 @@ def service_data_manager(results, vocab):
     results["service"]["data_manager"] = out
     log("  7d: " + json.dumps(out))
     return {"service_dm": (launches, routes),
-            "service_dm_restart_writes": (launches_w, routes_w)}
+            "service_dm_restart_writes": (launches_w, routes_w),
+            **chat_parts}
+
+
+# ---------------------------------------------------------------- part 7e
+class KernelShapes:
+    """Counts the shapes each kernel wrapper launches at while it is
+    entered: attention's (B, S), top-k's (B, rows, bias kind, k).  It wraps
+    the names the store and the encoder call (``engine.topk.fused_topk``,
+    ``ops.attention.encoder_attention``); the wrappers still count their
+    launches."""
+
+    def __init__(self):
+        import collections
+
+        self.attention = collections.Counter()
+        self.topk = collections.Counter()
+        self._lock = threading.Lock()
+
+    def __enter__(self):
+        from archi_tpu_torch.engine import topk as engine_topk
+        from archi_tpu_torch.ops import attention
+
+        self._saved = (engine_topk.fused_topk, attention.encoder_attention)
+        topk_fn, attn_fn = self._saved
+
+        def fused_topk(queries, corpus, bias, n_active, *, k=10):
+            with self._lock:
+                self.topk[(int(queries.shape[0]), int(corpus.shape[0]),
+                           "per-query" if bias.dim() == 2 else "shared",
+                           int(k))] += 1
+            return topk_fn(queries, corpus, bias, n_active, k=k)
+
+        def encoder_attention(q, k, v, key_bias, *, sm_scale):
+            with self._lock:
+                self.attention[(int(q.shape[0]), int(q.shape[1]))] += 1
+            return attn_fn(q, k, v, key_bias, sm_scale=sm_scale)
+
+        engine_topk.fused_topk = fused_topk
+        attention.encoder_attention = encoder_attention
+        return self
+
+    def __exit__(self, *exc):
+        from archi_tpu_torch.engine import topk as engine_topk
+        from archi_tpu_torch.ops import attention
+
+        engine_topk.fused_topk, attention.encoder_attention = self._saved
+        return False
+
+    def as_dict(self) -> dict:
+        return {"attention_b_s": {f"{b}x{s}": n for (b, s), n in
+                                  sorted(self.attention.items())},
+                "topk_b_rows_bias_k": {f"{b}x{n}:{kind}:k{k}": c
+                                       for (b, n, kind, k), c in
+                                       sorted(self.topk.items())}}
+
+
+def sse_events(url, path, body, user, timeout=600):
+    """``POST`` to an SSE route with ``urllib`` → the decoded events up to
+    ``[DONE]``."""
+    import urllib.request
+
+    req = urllib.request.Request(url + path, data=json.dumps(body).encode(),
+                                 headers={"Content-Type": "application/json",
+                                          "X-User-Email": user})
+    events = []
+    with urllib.request.urlopen(req, timeout=timeout) as r:
+        check(r.status == 200, f"{path} answered {r.status}")
+        for line in r:
+            line = line.decode().strip()
+            if not line.startswith("data: "):
+                continue
+            if line == "data: [DONE]":
+                break
+            events.append(json.loads(line[6:]))
+    return events
+
+
+def as_sources(results):
+    """(Document, score) results → the chat's ``sources``, as the
+    wrapper formats them (deduplicated by document, 4 decimals)."""
+    import types
+
+    from archi_tpu_torch.orchestrator.output import PipelineOutput
+    from archi_tpu_torch.web.chat_wrapper import ChatWrapper
+
+    out = PipelineOutput(answer="", source_documents=[d for d, _ in results],
+                         metadata={"retriever_scores": [s for _, s in
+                                                        results]})
+    return ChatWrapper._format_sources(
+        types.SimpleNamespace(source_score_threshold=0.0), out)
+
+
+def same_sources(got, want, tol=1.0001e-4):
+    """Tie-aware over the chat's sources: equal length, scores within
+    ``tol`` (one step of the 4 decimals), and a document in one list only
+    sits at the cut, tied with it within ``tol``."""
+    if len(got) != len(want):
+        return False
+    if any(abs(g["score"] - w["score"]) > tol for g, w in zip(got, want)):
+        return False
+    g = {x["resource_hash"]: x["score"] for x in got}
+    w = {x["resource_hash"]: x["score"] for x in want}
+    cut = min(w.values(), default=0.0)
+    return all(abs(g.get(h, w.get(h)) - cut) <= tol for h in set(g) ^ set(w))
+
+
+def service_chat(results, url, st, overrides, texts, vocab, miss):
+    """7e: the port's chat service over 7d's live data-manager (``url``,
+    its store ``st``).  (i) ``service_chat.build_app`` in remote mode on
+    7d's config (micro-batching on) and ``services.chat.engine_url``:
+    CHAT_CLIENTS x CHAT_CALLS chats over ``urllib``, half of the clients
+    in one conversation each, every answer's sources equal to the direct
+    hybrid search of its condensed query on 7d's store; (ii) the stream,
+    history, feedback, document selection, the data-manager proxy, BYOK
+    and ``/metrics``; (iv) the ReAct agent over the remote store, its model
+    scripted to search once; then (iii) the chat in-process over 7d's
+    store with the MaxSim rerank (over-fetch CHAT_OVERFETCH), each answer
+    equal to the direct rerank.  → launches by part."""
+    import copy
+    import importlib.util
+    import statistics
+
+    import numpy as np
+
+    from archi_tpu_torch.bin.bootstrap import build_context
+    from archi_tpu_torch.bin.service_chat import build_app as build_chat
+    from archi_tpu_torch.engine import topk as engine_topk
+    from archi_tpu_torch.engine.remote_vectorstore import RemoteVectorStore
+    from archi_tpu_torch.engine.reranker import (MaxSimReranker,
+                                                 RerankingRetriever)
+    from archi_tpu_torch.ops import LAUNCHES, ROUTE_LAUNCHES, reset_launches
+    from archi_tpu_torch.orchestrator.archi import Archi
+    from archi_tpu_torch.providers.chat_model import ScriptedChatModel
+    from archi_tpu_torch.retrievers import HybridRetriever
+    from archi_tpu_torch.utils.messages import Message, ToolCall
+
+    t_part = time.perf_counter()
+    out = {"clients": CHAT_CLIENTS, "calls": CHAT_CALLS}
+    rng = np.random.default_rng(SEED + 13)
+
+    def doc_words(n):
+        return " ".join(texts[int(rng.integers(len(texts)))].split()[:n])
+
+    # 7a's mix: document text, short queries, the BM25-miss query
+    questions = [[doc_words(48), short_query(rng, vocab), doc_words(24),
+                  miss if c % 8 == 0 else short_query(rng, vocab)]
+                 for c in range(CHAT_CLIENTS)]
+
+    # ---- (i) remote mode: one config for both services
+    chat_over = copy.deepcopy(overrides)
+    chat_over["services"] = {"chat": {"engine_url": url}}
+    check(chat_over["data_manager"]["serving"]["micro_batch"]["enabled"],
+          "7e: the config does not enable micro-batching")
+    t0 = time.perf_counter()
+    app, ctx = build_chat(overrides=chat_over, remote_engine=True)
+    curl = f"http://127.0.0.1:{app.serve('127.0.0.1', 0, background=True)}"
+    out["build_s"] = time.perf_counter() - t0
+    crypto = importlib.util.find_spec("cryptography") is not None
+    check(type(ctx.vectorstore) is RemoteVectorStore
+          and ctx.vectorstore.base_url == url
+          and (ctx.byok_store is None) == (not crypto),
+          f"7e: the chat's context {type(ctx.vectorstore).__name__}, "
+          f"BYOK {ctx.byok_store!r} (cryptography {crypto})")
+    log(f"  7e: the chat service in remote mode on 7d's config "
+        f"(micro-batching on) built in {out['build_s']:.2f} s; "
+        f"cryptography {'imports' if crypto else 'absent: BYOK off'}")
+
+    before = scrape_metrics(curl)
+    answers, lat, errors = {}, [], []
+    lock = threading.Lock()
+
+    def client(c):
+        user, cid = f"client{c:02d}@smoke", None
+        try:
+            for j, q in enumerate(questions[c]):
+                body = {"message": q}
+                if c % 2 == 0 and cid is not None:
+                    body["conversation_id"] = cid
+                t1 = time.perf_counter()
+                code, r = http_json(curl, "/api/get_chat_response", body,
+                                    user=user)
+                dt = time.perf_counter() - t1
+                if code != 200:
+                    raise RuntimeError(f"HTTP {code}: {r}")
+                cid = r["conversation_id"]
+                with lock:
+                    answers[(c, j)] = r
+                    lat.append(dt)
+        except Exception as exc:   # reported below: the run fails
+            with lock:
+                errors.append(f"client {c}: {exc!r}")
+
+    engine_topk.FUSED_FALLBACKS["count"] = 0
+    reset_launches()
+    shapes = KernelShapes()
+    with shapes:
+        threads = [threading.Thread(target=client, args=(c,))
+                   for c in range(CHAT_CLIENTS)]
+        t0 = time.perf_counter()
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=900)
+        wall = time.perf_counter() - t0
+        check(not any(t.is_alive() for t in threads),
+              "7e: a chat client did not finish")
+        check(not errors, f"7e: chat errors {errors[:3]}")
+        n_chats = CHAT_CLIENTS * CHAT_CALLS
+
+        # ---- (ii) the rest of the chat surface, over HTTP
+        q0 = questions[1][0]
+        events = sse_events(curl, "/api/get_chat_response_stream",
+                            {"message": q0}, "stream@smoke")
+        kinds = [e.get("type") for e in events]
+        code, plain = http_json(curl, "/api/get_chat_response",
+                                {"message": q0}, user="stream@smoke")
+        n_chats += 1
+        check(code == 200 and "retrieval" in kinds and kinds[-1] == "final"
+              and events[-1]["answer"] == plain["answer"]
+              and same_sources(events[-1]["sources"], plain["sources"]),
+              f"7e: the stream's events {kinds} and answer differ from the "
+              f"chat's")
+        cid0 = answers[(0, 0)]["conversation_id"]
+        code, convs = http_json(curl, "/api/conversations",
+                                user="client00@smoke")
+        code2, msgs = http_json(curl, f"/api/conversations/{cid0}",
+                                user="client00@smoke")
+        check(code == code2 == 200 and cid0 in [c["id"] for c in convs]
+              and len(msgs) == 2 * CHAT_CALLS,
+              f"7e: history {len(msgs)} messages in conversation {cid0}")
+        code, fb = http_json(curl, "/api/feedback", {
+            "message_id": answers[(0, 0)]["message_id"], "rating": "like"},
+            user="client00@smoke")
+        check(code == 200 and fb.get("feedback_id"), f"7e: feedback {fb}")
+        # document selection: the top source disabled in one conversation
+        code, first = http_json(curl, "/api/get_chat_response",
+                                {"message": q0}, user="select@smoke")
+        top = first["sources"][0]["resource_hash"]
+        code2, _ = http_json(
+            curl, f"/api/conversations/{first['conversation_id']}/documents",
+            {top: False}, method="PUT", user="select@smoke")
+        code3, second = http_json(curl, "/api/get_chat_response", {
+            "message": q0, "conversation_id": first["conversation_id"]},
+            user="select@smoke")
+        n_chats += 2
+        check(code == code2 == code3 == 200 and second["sources"]
+              and top not in [x["resource_hash"] for x in second["sources"]],
+              "7e: a disabled document is still cited in its conversation")
+        check(http_json(curl, "/api/dm/status") ==
+              http_json(url, "/api/ingestion/status"),
+              "7e: the proxied status differs from the data-manager's")
+        byok_code, byok = http_json(curl, "/api/user/api_key", {
+            "provider": "openai", "api_key": "sk-smoke"}, user="k@smoke")
+        check(byok_code == (200 if crypto else 501),
+              f"7e: BYOK answered {byok_code} {byok}")
+        after = scrape_metrics(curl)
+        rose = {k: after.get(k, 0.0) - before.get(k, 0.0) for k in (
+            "archi_chat_messages_total", "archi_chat_duration_seconds_count")}
+        check(set(rose.values()) == {float(n_chats)},
+              f"7e: /metrics rose by {rose}, not by {n_chats} chats")
+
+        # ---- (iv) the ReAct agent over the remote store, scripted
+        agent_q = doc_words(32)
+        agent = Archi("BaseReActAgent", config=ctx.config,
+                      vectorstore=ctx.vectorstore)
+        agent.pipeline.llms["agent_model"] = ScriptedChatModel([
+            Message("assistant", "", tool_calls=[ToolCall(
+                "search_vectorstore_hybrid", {"query": agent_q}, "c1")]),
+            Message("assistant", "Answered from the corpus.")])
+        agent_out = agent.invoke(history=[("User", "what does it say?")])
+        sync()
+    launches, routes = dict(LAUNCHES), dict(ROUTE_LAUNCHES)
+    check_routes("7e", launches, routes)
+    check(engine_topk.FUSED_FALLBACKS["count"] == 0, "7e: top-k fell back")
+    out["shapes_remote"] = shapes.as_dict()
+
+    # every answer against the direct path on 7d's store (not counted)
+    bad, cond_chars = [], []
+    for key, r in sorted(answers.items()):
+        cond = r["metadata"]["condensed_output"]
+        cond_chars.append(len(cond))
+        want = as_sources(st._hybrid_search_impl(
+            cond, k=5, semantic_weight=0.4, bm25_weight=0.6))
+        if not r["sources"] or not same_sources(r["sources"], want):
+            bad.append(key)
+    check(not bad, f"7e: chat sources differ from the direct hybrid search "
+                   f"at {bad[:8]}")
+    want = st._hybrid_search_impl(agent_q, k=5, semantic_weight=0.4,
+                                  bm25_weight=0.6)
+    got = list(zip(agent_out.source_documents,
+                   agent_out.metadata["retriever_scores"]))
+    check(agent_out.answer == "Answered from the corpus."
+          and agent_out.metadata["pipeline_used"] == "BaseReActAgent"
+          and same_ranking(got, want),
+          "7e: the agent's sources differ from the direct hybrid search")
+
+    # the retrieval's share of a chat: the same condensed queries, one at a
+    # time, through the data-manager's query route
+    timing = [r["timing"] for r in answers.values()]
+    retrieval = []
+    for r in list(answers.values())[:CHAT_CLIENTS]:
+        t1 = time.perf_counter()
+        code, _ = http_json(url, "/api/query/hybrid", {
+            "query": r["metadata"]["condensed_output"], "k": 5,
+            "semantic_weight": 0.4, "bm25_weight": 0.6})
+        retrieval.append(time.perf_counter() - t1)
+        check(code == 200, f"7e: /api/query/hybrid answered {code}")
+
+    def med_ms(key):
+        return statistics.median(t[key] for t in timing) * 1e3
+
+    out.update(
+        chats=CHAT_CLIENTS * CHAT_CALLS,
+        chats_per_s=CHAT_CLIENTS * CHAT_CALLS / wall, **latency_ms(lat),
+        lock_wait_ms=med_ms("server_received_to_lock_acquisition"),
+        history_ms=med_ms("lock_acquisition_to_query_convo_history"),
+        chain_ms=med_ms("chain_started_to_chain_finished"),
+        inserts_ms=med_ms("chain_finished_to_inserts_finished"),
+        msg_ms=med_ms("msg_duration"),
+        retrieval_ms=statistics.median(retrieval) * 1e3,
+        condensed_chars_median=statistics.median(cond_chars),
+        condensed_chars_max=max(cond_chars))
+    out["retrieval_share_of_chain"] = out["retrieval_ms"] / out["chain_ms"]
+    log(f"  7e: {out['chats']} chats from {CHAT_CLIENTS} clients over HTTP "
+        f"at {out['chats_per_s']:.1f} chats/s, p50 {out['p50_ms']:.0f} ms, "
+        f"p99 {out['p99_ms']:.0f} ms; medians: lock wait "
+        f"{out['lock_wait_ms']:.1f}, history {out['history_ms']:.1f}, chain "
+        f"{out['chain_ms']:.1f} (the retrieval over HTTP alone "
+        f"{out['retrieval_ms']:.1f}), inserts {out['inserts_ms']:.1f} ms; "
+        f"every answer's sources = the direct hybrid search")
+    log(f"  7e: stream, history, feedback, document selection, the proxy, "
+        f"BYOK {byok_code} and /metrics (+{n_chats} chats) "
+        f"as the chat app promises; the scripted agent's sources = the "
+        f"direct search")
+    log("  7e remote shapes: " + json.dumps(out["shapes_remote"]))
+    app.shutdown()
+    ctx.scheduler.stop()
+
+    # ---- (iii) in-process over 7d's store, with the MaxSim rerank
+    rr_over = copy.deepcopy(overrides)
+    rr_over["data_manager"]["serving"] = {"micro_batch": {"enabled": False}}
+    rr_over["data_manager"]["retrievers"] = {"hybrid_retriever": {
+        "rerank": {"enabled": True, "overfetch": CHAT_OVERFETCH}}}
+    batcher = st._batcher
+    ictx = build_context(overrides=rr_over, vectorstore=st)
+    check(ictx.vectorstore is st and st._batcher is batcher,
+          "7e: the in-process context changed 7d's store")
+    iapp, _ = build_chat(ctx=ictx)
+    iurl = f"http://127.0.0.1:{iapp.serve('127.0.0.1', 0, background=True)}"
+    # a question of each kind, the BM25-miss query last
+    rr_questions = [questions[i][i % CHAT_CALLS]
+                    for i in range(CHAT_RERANK - 1)] + [questions[0][-1]]
+    engine_topk.FUSED_FALLBACKS["count"] = 0
+    reset_launches()
+    rr_shapes = KernelShapes()
+    rr_answers, rr_lat = [], []
+    with rr_shapes:
+        for q in rr_questions:
+            t1 = time.perf_counter()
+            code, r = http_json(iurl, "/api/get_chat_response",
+                                {"message": q}, user="rerank@smoke")
+            rr_lat.append(time.perf_counter() - t1)
+            check(code == 200, f"7e rerank: HTTP {code}: {r}")
+            rr_answers.append(r)
+        sync()
+    rr_launches, rr_routes = dict(LAUNCHES), dict(ROUTE_LAUNCHES)
+    check_routes("7e rerank", rr_launches, rr_routes)
+    check(engine_topk.FUSED_FALLBACKS["count"] == 0,
+          "7e rerank: top-k fell back")
+    direct = RerankingRetriever(
+        HybridRetriever(st, k=CHAT_OVERFETCH, bm25_weight=0.6,
+                        semantic_weight=0.4),
+        MaxSimReranker(st._embedding_function), k=5)
+    bad = [i for i, r in enumerate(rr_answers) if not same_sources(
+        r["sources"], as_sources(direct.invoke(
+            r["metadata"]["condensed_output"])))]
+    check(not bad, f"7e rerank: sources differ from the direct rerank at "
+                   f"{bad}")
+    iapp.shutdown()
+    ictx.scheduler.stop()
+    out["rerank"] = {"chats": len(rr_answers),
+                     "chat_ms_median": statistics.median(rr_lat) * 1e3,
+                     "shapes": rr_shapes.as_dict()}
+    log(f"  7e: {len(rr_answers)} in-process chats with the MaxSim rerank "
+        f"(over-fetch {CHAT_OVERFETCH}) at a median "
+        f"{out['rerank']['chat_ms_median']:.1f} ms, each = the direct rerank "
+        f"(no attach_reranker)")
+    log("  7e rerank shapes: " + json.dumps(out["rerank"]["shapes"]))
+    out["seconds"] = time.perf_counter() - t_part
+    results["service"]["chat"] = out
+    log("  7e: " + json.dumps(out))
+    return {"service_chat": (launches, routes),
+            "service_chat_rerank": (rr_launches, rr_routes)}
 
 
 # ------------------------------------------------------------------ phase 8
@@ -2639,6 +3056,12 @@ def main() -> int:
                   bf16, True),
         topk_case("topk_b8_shared_dm_bf16", 8, SVC_CAPACITY, SVC_ROWS, bf16,
                   False),
+        # 7e's chats over the same index: one condensed query at a time,
+        # k=5 (the chat's hybrid search) and k=20 (the rerank's pool)
+        topk_case("topk_b1_k5_perquery_dm_bf16", 1, SVC_CAPACITY, SVC_ROWS,
+                  bf16, True, k=5),
+        topk_case("topk_b1_k20_perquery_dm_bf16", 1, SVC_CAPACITY, SVC_ROWS,
+                  bf16, True, k=20),
     ]
     attn = [
         # ingest (256 chunks in the 128 bucket) and queries (the 64 bucket,
@@ -2663,6 +3086,14 @@ def main() -> int:
         attention_case("attn_b128_s256_bf16", 128, 256, torch.bfloat16,
                        timed=True),
         attention_case("attn_b256_s256_bf16", 256, 256, torch.bfloat16),
+        # 7e's chats: one query padded to the batch bucket of 8 in the 256
+        # bucket (a conversation's condensed queries are long; its short
+        # ones take attn_b8_s64), the rerank's query (1 x 32 tokens) and
+        # its pool (20 x 128)
+        attention_case("attn_b8_s256_bf16", 8, 256, torch.bfloat16,
+                       timed=True),
+        attention_case("attn_b1_s32_bf16", 1, 32, torch.bfloat16),
+        attention_case("attn_b20_s128_bf16", 20, 128, torch.bfloat16),
     ]
     adc8 = [
         # path A: cell probing, one query a group (G=1) over 64 cells of up

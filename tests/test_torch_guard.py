@@ -79,13 +79,19 @@ def test_importing_every_module_loads_no_jax():
             "archi_tpu_torch.web.data_app", "archi_tpu_torch.data.manager",
             "archi_tpu_torch.data.collectors.tickets",
             "archi_tpu_torch.config.service"} <= set(mods)
+    # the chat service
+    assert {f"archi_tpu_torch.{m}" for m in (
+        "bin.service_chat", "web.chat_app", "orchestrator.archi",
+        "pipelines.qa", "pipelines.agents.base_react", "providers.registry",
+        "engine.remote_vectorstore")} <= set(mods)
     assert not [m for m in mods if _forbidden(m)]
 
 
-#: what the card's machine lacks: JAX, the JAX package, and the packages
-#: the service imports only inside the functions that need them
+#: what the card's machine lacks (JAX, the JAX package, and the packages
+#: the services import only inside the functions that need them), and
+#: ``cryptography``, which BYOK needs and a deployment may lack
 ABSENT = ("jax", "jaxlib", "archi_tpu", "ml_dtypes", "requests", "yaml",
-          "psycopg2", "bs4", "pypdf")
+          "psycopg2", "bs4", "pypdf", "cryptography")
 
 SERVICE_WITHOUT_JAX = """
 import importlib.abc, json, os, sys, time, urllib.request
@@ -146,9 +152,9 @@ print(json.dumps({"status": status, "hits": hits,
 def test_service_runs_where_jax_and_the_optional_packages_are_absent(
         tmp_path):
     """The card's machine, simulated: in a fresh interpreter where importing
-    JAX, the JAX package, requests, PyYAML, psycopg2, bs4 or pypdf raises,
-    the port's data-manager service ingests a directory and answers
-    ``/api/query/hybrid`` over HTTP."""
+    JAX, the JAX package, requests, PyYAML, psycopg2, bs4, pypdf or
+    cryptography raises, the port's data-manager service ingests a
+    directory and answers ``/api/query/hybrid`` over HTTP."""
     env = dict(os.environ, PYTHONPATH=str(ROOT))
     out = subprocess.run(
         [sys.executable, "-c", SERVICE_WITHOUT_JAX, str(tmp_path),
@@ -159,6 +165,120 @@ def test_service_runs_where_jax_and_the_optional_packages_are_absent(
     assert got["status"]["status"] == "done"
     assert got["status"]["added"] == 3 and got["status"]["failed"] == 0
     assert "sbatch" in got["hits"][0]["page_content"]
+    assert not [m for m in got["modules"] if m.split(".")[0] in ABSENT]
+
+
+CHAT_WITHOUT_JAX = """
+import importlib.abc, json, logging, os, sys, time, urllib.error
+import urllib.request
+
+ABSENT = set(sys.argv[2].split(","))
+
+
+class Absent(importlib.abc.MetaPathFinder):
+    def find_spec(self, name, path=None, target=None):
+        if name.split(".")[0] in ABSENT:
+            raise ImportError(f"no module named {name!r} on this machine")
+        return None
+
+
+sys.meta_path.insert(0, Absent())
+
+
+class Records(logging.Handler):
+    def __init__(self):
+        super().__init__(logging.WARNING)
+        self.messages = []
+
+    def emit(self, record):
+        self.messages.append(record.getMessage())
+
+
+records = Records()
+logging.getLogger("archi_tpu_torch.bin.bootstrap").addHandler(records)
+
+from archi_tpu_torch.bin.service_chat import build_app as build_chat
+from archi_tpu_torch.bin.service_data_manager import build_app as build_dm
+
+
+def call(url, path, body=None):
+    data = None if body is None else json.dumps(body).encode()
+    req = urllib.request.Request(url + path, data=data,
+                                 headers={"X-User-Email": "u@example.org"})
+    try:
+        with urllib.request.urlopen(req) as r:
+            return r.status, json.load(r)
+    except urllib.error.HTTPError as e:
+        return e.code, json.load(e)
+
+
+tmp = sys.argv[1]
+os.makedirs(os.path.join(tmp, "corpus"))
+for i, text in enumerate(("slurm array jobs are submitted with sbatch",
+                          "eos storage quotas are set per user",
+                          "the mailing list archive is searchable")):
+    with open(os.path.join(tmp, "corpus", f"doc{i}.md"), "w") as f:
+        f.write(text)
+dm = {"embedding_name": "hash", "data_path": os.path.join(tmp, "data"),
+      "db_path": os.path.join(tmp, "catalog.db"),
+      "sources": {"local_files": {"paths": [os.path.join(tmp, "corpus")]}},
+      "serving": {"micro_batch": {"enabled": True}}}
+app, ctx = build_dm(overrides={"data_manager": dm}, device="cpu")
+url = f"http://127.0.0.1:{app.serve('127.0.0.1', 0, background=True)}"
+warnings = [len(records.messages)]
+deadline = time.time() + 60
+while call(url, "/api/ingestion/status")[1]["status"] != "done" \\
+        and time.time() < deadline:
+    time.sleep(0.05)
+# one config for both services: the chat's own data path, the
+# data-manager's URL, micro-batching on
+chat_app, chat_ctx = build_chat(overrides={
+    "data_manager": dict(dm, data_path=os.path.join(tmp, "chat")),
+    "services": {"chat": {"engine_url": url}}}, remote_engine=True)
+warnings.append(len(records.messages))
+chat = f"http://127.0.0.1:{chat_app.serve('127.0.0.1', 0, background=True)}"
+answer = call(chat, "/api/get_chat_response",
+              {"message": "how do I submit slurm jobs"})
+byok = call(chat, "/api/user/api_key",
+            {"provider": "openai", "api_key": "sk-x"})
+status = call(chat, "/api/dm/status")
+chat_app.shutdown()
+app.shutdown()
+ctx.scheduler.stop()
+ctx.vectorstore._batcher.close()
+print(json.dumps({"answer": answer, "byok": byok, "status": status,
+                  "store": type(chat_ctx.vectorstore).__name__,
+                  "byok_store": repr(chat_ctx.byok_store),
+                  "warnings": warnings, "messages": records.messages,
+                  "modules": sorted(sys.modules)}))
+"""
+
+
+def test_chat_answers_where_jax_and_the_optional_packages_are_absent(
+        tmp_path):
+    """The card's machine, simulated for the chat service, and without
+    ``cryptography``: the port's data-manager ingests a directory, and the
+    port's chat in remote mode (one config for both, micro-batching on)
+    answers ``/api/get_chat_response`` over ``urllib`` with sources; each
+    context logs one warning that names ``cryptography``, and the BYOK
+    route answers 501."""
+    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    out = subprocess.run(
+        [sys.executable, "-c", CHAT_WITHOUT_JAX, str(tmp_path),
+         ",".join(ABSENT)], cwd=ROOT, env=env, capture_output=True,
+        text=True, timeout=180)
+    assert out.returncode == 0, out.stderr[-3000:]
+    got = json.loads(out.stdout.strip().splitlines()[-1])
+    code, answer = got["answer"]
+    assert code == 200 and answer["answer"].startswith("ECHO:")
+    assert answer["sources"][0]["display_name"] == "doc0.md"
+    assert answer["metadata"]["condensed_output"] == \
+        "how do I submit slurm jobs"
+    assert got["store"] == "RemoteVectorStore" and got["byok_store"] == "None"
+    assert got["byok"] == [501, {"error": "BYOK not configured"}]
+    assert got["status"][0] == 200 and got["status"][1]["status"] == "done"
+    assert got["warnings"] == [1, 2]
+    assert all("cryptography" in m for m in got["messages"])
     assert not [m for m in got["modules"] if m.split(".")[0] in ABSENT]
 
 

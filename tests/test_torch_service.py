@@ -18,7 +18,7 @@ The two wirings a service over the port's store needs: with the service's
 registry handed to the port (``use_registry``), ``GET /metrics`` shows the
 engine's and the scheduler's counters; with ``rerank.enabled``, a pipeline
 wrapped by ``attach_reranker`` returns the JAX stack's k reranked documents
-(``build_vectorstore`` logs an error until then).
+(``build_vectorstore`` logs a warning that names it).
 """
 
 import base64
@@ -439,12 +439,12 @@ def test_attach_reranker_wraps_a_built_retriever_once(rerank_stores):
 def test_build_vectorstore_logs_when_rerank_is_enabled(caplog, tmp_path):
     dm = {"embedding_name": "hash", "data_path": str(tmp_path / "data"),
           "retrievers": {"hybrid_retriever": {"rerank": {"enabled": True}}}}
-    with caplog.at_level("ERROR", logger="archi_tpu_torch.bin.bootstrap"):
+    with caplog.at_level("WARNING", logger="archi_tpu_torch.bin.bootstrap"):
         build_vectorstore(dm, device="cpu")
-    assert any("attach_reranker" in r.getMessage() and r.levelname == "ERROR"
-               for r in caplog.records)
+    assert any("attach_reranker" in r.getMessage()
+               and r.levelname == "WARNING" for r in caplog.records)
     caplog.clear()
     dm["retrievers"]["hybrid_retriever"]["rerank"]["enabled"] = False
-    with caplog.at_level("ERROR", logger="archi_tpu_torch.bin.bootstrap"):
+    with caplog.at_level("WARNING", logger="archi_tpu_torch.bin.bootstrap"):
         build_vectorstore(dm, device="cpu")
     assert not caplog.records
