@@ -4,11 +4,13 @@ Counterpart of ``archi_tpu/bin/bootstrap.py``.  ``build_vectorstore`` turns
 a ``data_manager`` config section into the port's store (resolve the
 embedder, restore ``<data_path>/engine_checkpoint`` or build a fresh index,
 turn on ``serving.micro_batch``); ``build_context`` builds on it what the
-two services run (``bin/service_data_manager.py``, ``bin/service_chat.py``):
-the merged config with the providers configured, the app database, the
-config service, the users, conversations, traces and prompts, the catalog,
-the store, the data manager, the scheduler and BYOK.  The JAX package's
-Postgres backends are not ported yet.
+services run (``bin/service_*.py``): the merged config with the providers
+configured, the app database, the config service, the users,
+conversations, traces and prompts, the catalog, the store, the data
+manager, the scheduler and BYOK.  ``app_db`` is a SQLite path or a
+``postgres://`` / ``postgresql://`` DSN, which opens
+``utils/app_db_postgres.PostgresAppDatabase`` (psycopg2, pooled), as in the
+JAX package.
 
 Two departures from the JAX package's ``build_context``:
 
@@ -73,6 +75,7 @@ from archi_tpu_torch.models.registry import resolve_embedder
 from archi_tpu_torch.providers.byok import BYOKResolver, BYOKStore
 from archi_tpu_torch.providers.registry import configure_providers
 from archi_tpu_torch.utils.app_db import AppDatabase
+from archi_tpu_torch.utils.app_db_postgres import open_app_database
 from archi_tpu_torch.utils.conversation_service import ConversationService
 from archi_tpu_torch.utils.hardware import default_device
 from archi_tpu_torch.utils.logging_utils import setup_logging
@@ -345,19 +348,6 @@ def open_byok_store(path: str) -> Optional[BYOKStore]:
     return BYOKStore(path, secret=secret)
 
 
-def open_app_database(path: str) -> AppDatabase:
-    """The SQLite app database at ``path``.  A Postgres DSN raises: the
-    Postgres backends are not ported yet, and a DSN is never served by a
-    SQLite file instead."""
-    if path.startswith(("postgres://", "postgresql://")):
-        raise NotImplementedError(
-            f"app_db {path.split('@')[-1]!r}: the Postgres backends "
-            "(utils/app_db_postgres.py, utils/connection_pool.py, "
-            "data/catalog_postgres.py) are not ported to archi_tpu_torch "
-            "yet (ROADMAP.md queue A).  Point app_db at a SQLite path")
-    return AppDatabase(path)
-
-
 def build_context(config_paths=(), overrides: Optional[dict] = None, *,
                   vectorstore: Optional[TorchVectorStore] = None,
                   device=None, devices=None) -> ServiceContext:
@@ -370,7 +360,8 @@ def build_context(config_paths=(), overrides: Optional[dict] = None, *,
     ``build_vectorstore(config["data_manager"], device=device,
     devices=devices)``, which restores ``<data_path>/engine_checkpoint``
     when it exists.  ``app_db`` (default ``<data_path>/app.db``) is a
-    SQLite path; BYOK keys go to ``<data_path>/byok.db``."""
+    SQLite path or a Postgres DSN; BYOK keys go to
+    ``<data_path>/byok.db``."""
     cm = ConfigurationManager(config_paths, overrides)
     cm.validate()
     config = cm.config

@@ -1,0 +1,3 @@
+"""Copy of ``archi_tpu/version.py``."""
+
+__version__ = "0.1.0"

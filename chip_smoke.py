@@ -52,7 +52,7 @@ Phases (each fails the run with a non-zero exit):
      tail, micro-batched hybrid and semantic queries, recall, exact scores
      and a save/load round trip; (d) the port's data-manager service over
      HTTP (``bin/service_data_manager.build_app``, flat bf16, micro-batching
-     at the defaults): 8,192 local files of about 4 KB (cut from 16,384)
+     at the defaults): 4,096 local files of about 4 KB (cut from 16,384)
      ingested by its initial ingestion (every file ``embedded``, the count
      equal to the corpus's chunks, the index at phase 2's top-k shape), 64
      clients x 8 ``POST /api/query/hybrid`` through
@@ -71,7 +71,23 @@ Phases (each fails the run with a non-zero exit):
      ``/metrics``; the ReAct agent over the remote store, its model
      scripted to search once; then 8 chats in-process over 7d's store with
      the MaxSim rerank (over-fetch 20), each equal to the direct rerank,
-     and the shape of every kernel launch of 7e logged;
+     and the shape of every kernel launch of 7e logged; (f) before 7d's
+     restart too, the port's other entry points: the grader
+     (``bin/service_grader.build_app`` over a context that takes 7d's
+     store) grading 16 submissions at once over HTTP, each grade's sources
+     equal to the direct semantic search, an account from
+     ``service_create_account`` whose password verifies, the Mattermost and
+     Piazza bots answering 16 questions each in one ``step()`` and the
+     Redmine processor drafting 8 tickets (its agent scripted to search
+     once), every answer's sources equal to the direct hybrid search; then
+     ``bin/service_benchmark`` on a config of its own (the fixture corpus
+     as local files, phase 3's encoder, flat bf16, SOURCES and RETRIEVAL),
+     ``evaluate --fixture`` and ``--beir`` through the port's CLI on the
+     card and on the CPU (the same totals, recall@10 at least 0.99), and
+     ``create`` through ``cli/deployment.DeploymentManager``: the
+     data-manager and the chat as processes on the card over 256 of 7d's
+     files, queried and chatted with over HTTP (0 top-k fallbacks in their
+     ``/metrics``), then ``delete``;
   8. the trainer (``models/train_encoder.py``) at MiniLM-L6's widths over
      phase 3's first 1024 documents: step 0 at f32 on the card against the
      CPU (loss and gradients, 1e-4 relative), 100 bf16 steps (the loss
@@ -102,7 +118,11 @@ every ADC launch of their path took the vectorised route; phases 7 and 9
 fail unless every launch of their parts took the tensor-core or the
 vectorised route.  Phase 2 holds the kernels against their plain versions
 at phase 9's shapes too (a shard of 2^20 or 2^21 rows, an empty shard, the
-half batch of the split encode; 9c adds the 8-bit ADC at a shard's probe).  The last two lines are a JSON object listing the kernels and
+half batch of the split encode; 9c adds the 8-bit ADC at a shard's probe),
+and at 7f's (the grader's k=3 searches alone, 4 and 16 at once, the
+fixture store's RETRIEVAL batch and hybrid queries, ``--beir``'s k=100,
+the benchmark service's ingest batches).  The
+last two lines are a JSON object listing the kernels and
 ``{"ok": true, "device": {...}}``.  Without CUDA, or without the rest of
 the repository beside it, the script exits non-zero and prints no result.
 """
@@ -144,17 +164,28 @@ XL_DOCS = 4096             # documents in its exact tail
 RERANK_QUERIES = 8
 RERANK_TOP = 50
 # 7d: local files of about 4 KB in the corpus (cut from 16,384: 7d alone
-# took 502 s of the run at that size)
-SVC_FILES = 8192
+# took 502 s of the run at that size; from 8,192, whose host-bound ingest
+# took 97-230 s)
+SVC_FILES = 4096
 # 7d's flat index, at which phase 2 holds fused_topk: the corpus's chunks
-# in a capacity of 2^16 rows
-SVC_ROWS = 40_861
-SVC_CAPACITY = 1 << 16
+# in a capacity of 2^15 rows
+SVC_ROWS = 20_425
+SVC_CAPACITY = 1 << 15
 SVC_UPLOADS = 16           # 7d: documents uploaded over HTTP
 CHAT_CLIENTS = 32          # 7e: concurrent chat clients
 CHAT_CALLS = 4             # 7e: chats a client
 CHAT_RERANK = 8            # 7e: in-process chats with the MaxSim rerank
 CHAT_OVERFETCH = 20        # 7e: the rerank's pool
+ENTRY_GRADES = 16          # 7f: submissions graded at once
+ENTRY_QUESTIONS = 16       # 7f: questions a bot answers in one step
+ENTRY_TICKETS = 8          # 7f: tickets the Redmine processor drafts
+# 7f: the fixture corpus's 1,000-character chunks in the benchmark's and
+# evaluate's stores, and their capacity (the index's smallest)
+EVAL_ROWS = 490
+EVAL_CAPACITY = 4096
+BEIR_TOPICS = 30           # 7f: evaluate --beir over write_fixture_beir
+BEIR_DOCS_PER_TOPIC = 8
+CREATE_FILES = 256         # 7f: 7d's files in the deployment of create
 # phase 8, the trainer: MiniLM-L6's widths, phase 3's first documents
 TRAIN_HIDDEN = 384
 TRAIN_LAYERS = 6
@@ -1767,6 +1798,9 @@ def service_data_manager(results, vocab):
     # ---- 7e: the port's chat service on this live data-manager
     chat_parts = service_chat(results, url, st, overrides, texts, vocab,
                               miss)
+    # ---- 7f: the other entry points, evaluate and create
+    chat_parts.update(entry_points(results, st, overrides, texts, vocab,
+                                   corpus))
 
     # ---- restart on the same data path: the checkpoint, a zero diff
     app.shutdown()
@@ -2278,6 +2312,586 @@ def service_chat(results, url, st, overrides, texts, vocab, miss):
     log("  7e: " + json.dumps(out))
     return {"service_chat": (launches, routes),
             "service_chat_rerank": (rr_launches, rr_routes)}
+
+
+# ---------------------------------------------------------------- part 7f
+def same_docs(got_docs, want_wide, k, tol=1.0001e-4):
+    """Tie-aware over documents without scores (the grading pipeline's):
+    the i-th document is the direct search's i-th, or scores within ``tol``
+    of it (its score read from ``want_wide``, a deeper direct result)."""
+    want = want_wide[:k]
+    if len(got_docs) != len(want):
+        return False
+    score = {d.metadata["chunk_id"]: s for d, s in want_wide}
+    for g, (w, ws) in zip(got_docs, want):
+        gid = g.metadata["chunk_id"]
+        if gid != w.metadata["chunk_id"] and (
+                gid not in score or abs(score[gid] - ws) > tol):
+            return False
+    return True
+
+
+class Recorder:
+    """Records each ``Archi.invoke``'s output by pipeline while entered:
+    the grader, the bots and the ticket processor build their ``Archi``
+    inside the port's entry points, and their answers carry no sources."""
+
+    def __init__(self):
+        import collections
+
+        self.outputs = collections.defaultdict(list)
+        self._lock = threading.Lock()
+
+    def __enter__(self):
+        from archi_tpu_torch.orchestrator.archi import Archi
+
+        self._saved = invoke = Archi.invoke
+        rec = self
+
+        def recorded(archi, **kwargs):
+            out = invoke(archi, **kwargs)
+            with rec._lock:
+                rec.outputs[type(archi.pipeline).__name__].append(
+                    (kwargs, out))
+            return out
+
+        Archi.invoke = recorded
+        return self
+
+    def __exit__(self, *exc):
+        from archi_tpu_torch.orchestrator.archi import Archi
+
+        Archi.invoke = self._saved
+        return False
+
+
+def entry_services(st, overrides, texts, vocab):
+    """7f (i): the grader, the account tool, the bots and the ticket
+    processor over 7d's live store (``st``), each from the port's entry
+    point with in-process fake transports.  → (launches, routes, out)."""
+    import copy
+
+    import numpy as np
+
+    from archi_tpu_torch.bin import (service_create_account,
+                                     service_mattermost, service_piazza,
+                                     service_redmine)
+    from archi_tpu_torch.bin.bootstrap import build_context
+    from archi_tpu_torch.bin.service_grader import build_app as build_grader
+    from archi_tpu_torch.engine import topk as engine_topk
+    from archi_tpu_torch.ops import LAUNCHES, ROUTE_LAUNCHES, reset_launches
+    from archi_tpu_torch.providers.chat_model import ScriptedChatModel
+    from archi_tpu_torch.utils.messages import Message, ToolCall
+
+    out = {}
+    rng = np.random.default_rng(SEED + 17)
+    root = os.path.join(SERVICE_TMP, "7f")
+
+    def doc_words(n):
+        return " ".join(texts[int(rng.integers(len(texts)))].split()[:n])
+
+    # one context over 7d's store, its own app database (7d's batcher kept)
+    over = copy.deepcopy(overrides)
+    over["data_manager"].update(
+        data_path=os.path.join(root, "data"),
+        db_path=os.path.join(root, "catalog.db"),
+        serving={"micro_batch": {"enabled": False}})
+    batcher = st._batcher
+    t0 = time.perf_counter()
+    ctx = build_context(overrides=over, vectorstore=st, device=DEV)
+    check(ctx.vectorstore is st and st._batcher is batcher,
+          "7f: the context changed 7d's store")
+    app, _ = build_grader(ctx=ctx)
+    gurl = f"http://127.0.0.1:{app.serve('127.0.0.1', 0, background=True)}"
+    out["grader_build_s"] = time.perf_counter() - t0
+    submissions = [doc_words(int(rng.integers(16, 80)))
+                   for _ in range(ENTRY_GRADES)]
+    tickets = [doc_words(32) for _ in range(ENTRY_TICKETS)]
+    questions = {bot: [doc_words(24) if i % 2 else short_query(rng, vocab)
+                       for i in range(ENTRY_QUESTIONS)]
+                 for bot in ("mattermost", "piazza")}
+
+    engine_topk.FUSED_FALLBACKS["count"] = 0
+    reset_launches()
+    shapes, rec = KernelShapes(), Recorder()
+    with shapes, rec:
+        # ---- the grader: ENTRY_GRADES submissions at once over HTTP
+        grades, errors = {}, []
+
+        def grade(i):
+            try:
+                grades[i] = http_json(gurl, "/api/grade", {
+                    "submission": submissions[i], "rubric": "the corpus",
+                    "max_points": 10}, user=f"student{i:02d}@smoke")
+            except Exception as exc:   # reported below: the run fails
+                errors.append(f"grade {i}: {exc!r}")
+
+        threads = [threading.Thread(target=grade, args=(i,))
+                   for i in range(ENTRY_GRADES)]
+        t0 = time.perf_counter()
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=600)
+        out["grade_wall_s"] = time.perf_counter() - t0
+        check(not errors and len(grades) == ENTRY_GRADES,
+              f"7f: grading errors {errors[:3]}")
+        check(all(code == 200 and body["status"] == "pending"
+                  for code, body in grades.values()),
+              f"7f: a grade answered {[g for g in grades.values()][:2]}")
+        code, subs = http_json(gurl, "/api/submissions?status=pending")
+        check(code == 200 and len(subs) == ENTRY_GRADES,
+              f"7f: {len(subs)} pending submissions")
+        app.shutdown()
+
+        # ---- an account whose password verifies
+        service_create_account.create_account(
+            ctx.users, "grader@smoke", "smoke-pw", ["user", "admin"])
+        check(ctx.users.verify_password("grader@smoke", "smoke-pw")
+              and not ctx.users.verify_password("grader@smoke", "wrong"),
+              "7f: the created account's password does not verify")
+
+        # ---- the bots: one step answers every question
+        posted = {}
+        t0 = time.perf_counter()
+        for name, module in (("mattermost", service_mattermost),
+                             ("piazza", service_piazza)):
+            items = [{"id": f"{name}{i}", "question": q, "root_id": ""}
+                     for i, q in enumerate(questions[name])]
+            posted[name] = []
+            bot, bctx = module.build_bot(
+                ctx=ctx, fetch_fn=lambda items=items: items,
+                post_fn=lambda item, ans, name=name: posted[name].append(
+                    (item["id"], ans)))
+            check(bctx is ctx, "7f: the bot built its own context")
+            n = bot.step()
+            check(n == ENTRY_QUESTIONS and bot.step() == 0
+                  and len(posted[name]) == ENTRY_QUESTIONS,
+                  f"7f: {name} answered {n} of {ENTRY_QUESTIONS}")
+        out["bots_s"] = time.perf_counter() - t0
+
+        # ---- the ticket processor, its agent scripted to search once
+        class Redmine:
+            def __init__(self):
+                self.notes = []
+
+            def add_note(self, issue_id, note, private=False):
+                self.notes.append((issue_id, note, private))
+
+        script = []
+        for q in tickets:
+            script += [Message("assistant", "", tool_calls=[ToolCall(
+                "search_vectorstore_hybrid", {"query": q}, "c1")]),
+                Message("assistant", "Drafted from the corpus.")]
+        issues = [{"id": i + 1, "subject": f"ticket {i}", "description": q}
+                  for i, q in enumerate(tickets)]
+        redmine = Redmine()
+        proc, _ = service_redmine.build_processor(
+            ctx=ctx, list_issues=lambda status: issues
+            if status == "open" else [], redmine_client=redmine)
+        proc.agent.pipeline.llms["agent_model"] = ScriptedChatModel(script)
+        t0 = time.perf_counter()
+        n = proc.step()
+        out["tickets_s"] = time.perf_counter() - t0
+        check(n == ENTRY_TICKETS and proc.step() == 0
+              and len(redmine.notes) == ENTRY_TICKETS
+              and all(note.startswith("[AI draft]\nDrafted") and private
+                      for _i, note, private in redmine.notes),
+              f"7f: {n} tickets drafted, notes {redmine.notes[:2]}")
+        sync()
+    launches, routes = dict(LAUNCHES), dict(ROUTE_LAUNCHES)
+    check_routes("7f services", launches, routes)
+    check(engine_topk.FUSED_FALLBACKS["count"] == 0, "7f: top-k fell back")
+    ctx.scheduler.stop()
+
+    # every output against the direct search on 7d's store (not counted)
+    graded = rec.outputs["GradingPipeline"]
+    check(len(graded) == ENTRY_GRADES, f"7f: {len(graded)} gradings")
+    bad = [kw["submission"][:40] for kw, o in graded if not same_docs(
+        o.source_documents, st._similarity_search_impl(
+            kw["submission"][:500], k=8), 3)]
+    check(not bad, f"7f: grading sources differ from the direct semantic "
+                   f"search for {bad[:4]}")
+    answered = rec.outputs["QAPipeline"]
+    check(len(answered) == 2 * ENTRY_QUESTIONS,
+          f"7f: {len(answered)} bot answers")
+    bad = [i for i, (_kw, o) in enumerate(answered) if not same_ranking(
+        list(zip(o.source_documents, o.metadata["retriever_scores"])),
+        st._hybrid_search_impl(o.metadata["condensed_output"], k=5,
+                               semantic_weight=0.4, bm25_weight=0.6))]
+    check(not bad, f"7f: bot answers' sources differ from the direct hybrid "
+                   f"search at {bad[:8]}")
+    drafted = rec.outputs["CMSCompOpsAgent"]
+    check(len(drafted) == ENTRY_TICKETS, f"7f: {len(drafted)} drafts")
+    bad = [i for i, (_kw, o) in enumerate(drafted) if not same_ranking(
+        list(zip(o.source_documents, o.metadata["retriever_scores"])),
+        st._hybrid_search_impl(tickets[i], k=5, semantic_weight=0.4,
+                               bm25_weight=0.6))]
+    check(not bad, f"7f: drafts' sources differ from the direct hybrid "
+                   f"search at {bad}")
+    out.update(grades=ENTRY_GRADES,
+               grades_per_s=ENTRY_GRADES / out["grade_wall_s"],
+               bot_answers=2 * ENTRY_QUESTIONS,
+               bot_answers_per_s=2 * ENTRY_QUESTIONS / out["bots_s"],
+               tickets=ENTRY_TICKETS, shapes=shapes.as_dict())
+    log(f"  7f: {ENTRY_GRADES} grades at once over HTTP in "
+        f"{out['grade_wall_s']:.2f} s ({out['grades_per_s']:.1f}/s), an "
+        f"account, {2 * ENTRY_QUESTIONS} bot answers "
+        f"({out['bot_answers_per_s']:.1f}/s) and {ENTRY_TICKETS} drafted "
+        f"tickets; every source = the direct search")
+    log("  7f service shapes: " + json.dumps(out["shapes"]))
+    return launches, routes, out
+
+
+def entry_evaluate():
+    """7f (ii): ``service_benchmark.run_benchmark`` on a config of its own
+    (the fixture corpus as local files, phase 3's encoder, flat bf16,
+    SOURCES and RETRIEVAL), then ``evaluate --fixture`` and ``--beir``
+    through the port's CLI on the card and on the CPU.
+    → {part: (launches, routes)}, out."""
+    import importlib.util
+
+    from archi_tpu_torch.benchmarking.beir import write_fixture_beir
+    from archi_tpu_torch.benchmarking.fixture import fixture_corpus
+    from archi_tpu_torch.bin.service_benchmark import run_benchmark
+    from archi_tpu_torch.data.chunking import character_split
+    from archi_tpu_torch.engine import topk as engine_topk
+    from archi_tpu_torch.ops import LAUNCHES, ROUTE_LAUNCHES, reset_launches
+
+    out, parts = {}, {}
+    root = os.path.join(SERVICE_TMP, "7f", "bench")
+    corpus = os.path.join(root, "corpus")
+    os.makedirs(corpus)
+    docs, fixture_qs = fixture_corpus()
+    for name, text, _meta in docs:
+        with open(os.path.join(corpus, name), "w") as f:
+            f.write(text)
+    rows = sum(len(character_split(t, 1000, 0)) for _n, t, _m in docs)
+    check(rows == EVAL_ROWS, f"7f: the fixture has {rows} chunks, not the "
+                             f"{EVAL_ROWS} at which phase 2 holds fused_topk")
+    queries = [{"question": q["question"], "reference_sources": [
+        {"display_name": s["source"]} for s in q["reference_sources"]]}
+        for q in fixture_qs]
+    over = {"data_manager": {
+        "embedding_name": "minilm",
+        "model_dir": os.path.join(SERVICE_TMP, "model"),
+        "data_path": os.path.join(root, "data"),
+        "db_path": os.path.join(root, "catalog.db"),
+        "index": {"type": "flat", "dtype": "bfloat16"},
+        "sources": {"local_files": {"paths": [corpus]}}},
+        "services": {"benchmarking": {
+            "modes": ["SOURCES", "RETRIEVAL"],
+            "out_dir": os.path.join(root, "out")}}}
+
+    # ---- the benchmark service, counted
+    engine_topk.FUSED_FALLBACKS["count"] = 0
+    reset_launches()
+    shapes = KernelShapes()
+    t0 = time.perf_counter()
+    with shapes:
+        report, ctx = run_benchmark(queries, overrides=over, device=DEV)
+        sync()
+    out["benchmark_s"] = time.perf_counter() - t0
+    parts["entry_benchmark"] = (dict(LAUNCHES), dict(ROUTE_LAUNCHES))
+    check_routes("7f benchmark", *parts["entry_benchmark"])
+    check(engine_topk.FUSED_FALLBACKS["count"] == 0,
+          "7f benchmark: top-k fell back")
+    st = ctx.vectorstore
+    check(st.count() == EVAL_ROWS and st.index.capacity == EVAL_CAPACITY,
+          f"7f: the benchmark's store holds {st.count()} rows in "
+          f"{st.index.capacity}")
+    totals = report["totals"]
+    check(totals["n_questions"] == len(queries)
+          and 0.0 <= totals["source_accuracy"] <= 1.0
+          and 0.0 < totals["recall_at_k"] <= 1.0 and totals["k"] == 10,
+          f"7f: benchmark totals {totals}")
+    # each question's sources against the direct hybrid search (the
+    # Benchmarker asks one question at a time, as the direct path does)
+    bad = [i for i, q in enumerate(report["questions"].values())
+           if [m["chunk_id"] for m in q["sources_metadata"]] !=
+           [d.metadata["chunk_id"] for d, _s in st._hybrid_search_impl(
+               q["question"], k=5, semantic_weight=0.4, bm25_weight=0.6)]]
+    check(not bad, f"7f: benchmark sources differ from the direct search "
+                   f"at questions {bad[:8]}")
+    ctx.scheduler.stop()
+    out["benchmark"] = totals
+    out["benchmark_shapes"] = shapes.as_dict()
+    log(f"  7f: service_benchmark over {len(docs)} fixture files "
+        f"({EVAL_ROWS} chunks, MiniLM-L6, flat bf16) in "
+        f"{out['benchmark_s']:.1f} s: " + json.dumps(totals))
+    del st, ctx
+
+    # ---- archi-tpu-torch evaluate --fixture / --beir, card and CPU
+    beir_dir = os.path.join(root, "beir")
+    write_fixture_beir(beir_dir, n_topics=BEIR_TOPICS,
+                       docs_per_topic=BEIR_DOCS_PER_TOPIC)
+    use_click = importlib.util.find_spec("click") is not None
+    out["evaluate_route"] = "CliRunner" if use_click else "run_evaluate"
+
+    def evaluate(kind, dev):
+        """``evaluate --fixture`` or ``--beir`` on ``dev`` → (the totals or
+        the BEIR metrics, seconds)."""
+        out_dir = os.path.join(root, f"eval_{kind}_{dev}")
+        t1 = time.perf_counter()
+        if use_click:
+            from click.testing import CliRunner
+
+            from archi_tpu_torch.cli.cli_main import cli
+
+            args = ["--fixture"] if kind == "fixture" else ["--beir",
+                                                            beir_dir]
+            r = CliRunner().invoke(cli, ["evaluate", *args, "--device", dev,
+                                         "-o", out_dir])
+            if r.exception is not None and not isinstance(r.exception,
+                                                          SystemExit):
+                raise r.exception
+            check(r.exit_code == 0, f"7f: evaluate {args}: {r.output}")
+            got = json.loads(r.output[:r.output.rindex("}") + 1])
+        else:
+            from archi_tpu_torch.cli.evaluate import run_evaluate
+
+            got = run_evaluate(fixture=kind == "fixture",
+                               beir=beir_dir if kind == "beir" else None,
+                               device=dev, out=out_dir)
+            got = got.get("totals", got)
+        return got, time.perf_counter() - t1
+
+    engine_topk.FUSED_FALLBACKS["count"] = 0
+    reset_launches()
+    shapes = KernelShapes()
+    runs = {}
+    with shapes:
+        for dev in (DEV, "cpu"):
+            for kind in ("fixture", "beir"):
+                runs[(kind, dev)] = evaluate(kind, dev)
+        sync()
+    parts["entry_evaluate"] = (dict(LAUNCHES), dict(ROUTE_LAUNCHES))
+    check_routes("7f evaluate", *parts["entry_evaluate"],
+                 names=("fused_topk",))
+    check(engine_topk.FUSED_FALLBACKS["count"] == 0,
+          "7f evaluate: top-k fell back")
+    (card, card_s), (cpu, cpu_s) = runs[("fixture", DEV)], \
+        runs[("fixture", "cpu")]
+    same = {k: card[k] == cpu[k] for k in (
+        "n_questions", "source_accuracy", "relative_source_accuracy",
+        "recall_at_k", "k")}
+    check(all(same.values()), f"7f: evaluate --fixture on the card {card} "
+                              f"and on the CPU {cpu}")
+    check(card["recall_at_k"] >= 0.99,
+          f"7f: evaluate recall@10 {card['recall_at_k']}")
+    (bcard, _), (bcpu, _) = runs[("beir", DEV)], runs[("beir", "cpu")]
+    check(all(abs(bcard[k] - bcpu[k]) <= 1e-4 for k in (
+        "ndcg@10", "recall@10", "recall@100", "mrr@10"))
+          and (bcard["documents"], bcard["queries"]) ==
+          (BEIR_TOPICS * BEIR_DOCS_PER_TOPIC, BEIR_TOPICS),
+          f"7f: evaluate --beir on the card {bcard} and on the CPU {bcpu}")
+    out.update(evaluate_card=card, evaluate_cpu=cpu,
+               evaluate_s={"card": card_s, "cpu": cpu_s},
+               beir_card=bcard, beir_cpu=bcpu,
+               evaluate_shapes=shapes.as_dict())
+    log(f"  7f: evaluate --fixture through {out['evaluate_route']}: "
+        f"recall@10 {card['recall_at_k']}, source accuracy "
+        f"{card['source_accuracy']} on the card = the CPU's; query_qps "
+        f"{card['query_qps']} on the card, {cpu['query_qps']} on the CPU "
+        f"({card_s:.1f} s and {cpu_s:.1f} s a run)")
+    log(f"  7f: evaluate --beir: {json.dumps(bcard)} on the card, nDCG, "
+        f"recall and MRR within 1e-4 of the CPU's")
+    log("  7f evaluate shapes: " + json.dumps(out["evaluate_shapes"]))
+    return parts, out
+
+
+def entry_create(corpus):
+    """7f (iii): ``archi-tpu-torch create`` through the port's
+    ``DeploymentManager``: the data-manager and the chat as real
+    processes on the card over 256 of 7d's files, queried and chatted with
+    over HTTP, then deleted.  → out."""
+    import signal
+
+    from archi_tpu_torch.cli import deployment
+    from archi_tpu_torch.config.manager import ConfigurationManager
+    from archi_tpu_torch.utils.documents import Document
+
+    out = {}
+    root = os.environ["ARCHI_TPU_DEPLOYMENTS"]
+    check(deployment.DEPLOY_ROOT == root,
+          "7f: the deployment root was read before ARCHI_TPU_DEPLOYMENTS "
+          "was set")
+    files = os.path.join(SERVICE_TMP, "7f", "deploy_corpus")
+    os.makedirs(files)
+    names = sorted(os.listdir(corpus))[:CREATE_FILES]
+    for name in names:
+        shutil.copy(os.path.join(corpus, name), files)
+    dm_port, chat_port = free_port(), free_port()
+    cm = ConfigurationManager(overrides={
+        "name": "smoke",
+        "data_manager": {
+            "embedding_name": "minilm",
+            "model_dir": os.path.join(SERVICE_TMP, "model"),
+            "index": {"type": "flat", "dtype": "bfloat16"},
+            "sources": {"local_files": {"paths": [files]}},
+            "serving": {"micro_batch": {"enabled": True}}},
+        "services": {
+            "data_manager": {"enabled": True, "host": "127.0.0.1",
+                             "port": dm_port},
+            "chat": {"enabled": True, "host": "127.0.0.1",
+                     "port": chat_port}}})
+    cm.validate()
+    mgr = deployment.DeploymentManager("smoke")
+    reaped = {}
+
+    def reap(name, pid):
+        # the children of this process: reaped here, so that a stopped
+        # one is gone (its exit status kept for the failure report)
+        try:
+            reaped[name] = os.waitpid(pid, 0)[1]
+        except ChildProcessError:
+            reaped[name] = None
+
+    t0 = time.perf_counter()
+    started = {}
+    try:
+        started = mgr.start(cm.config)
+        check(list(started) == ["data_manager", "chat"],
+              f"7f: create started {list(started)}")
+        for name, info in started.items():
+            threading.Thread(target=reap, args=(name, info["pid"]),
+                             daemon=True).start()
+        dm = f"http://127.0.0.1:{dm_port}"
+        chat = f"http://127.0.0.1:{chat_port}"
+        deadline = time.perf_counter() + 600
+        while True:
+            check(not reaped, f"7f: a service exited: {reaped}")
+            try:
+                code, status = http_json(dm, "/api/ingestion/status",
+                                         timeout=10)
+                if code == 200 and status["status"] == "done":
+                    break
+                check(status.get("status") != "failed",
+                      f"7f: the ingestion failed {status}")
+            except OSError:
+                pass
+            check(time.perf_counter() < deadline,
+                  "7f: the data-manager was not ready in 600 s")
+            time.sleep(0.2)
+        out["dm_ready_s"] = time.perf_counter() - t0
+        check(status["added"] == CREATE_FILES and status["failed"] == 0,
+              f"7f: the spawned ingestion {status}")
+        while True:
+            try:
+                if http_json(chat, "/healthz", timeout=10)[0] == 200:
+                    break
+            except OSError:
+                pass
+            check(not reaped and time.perf_counter() < deadline,
+                  f"7f: the chat was not ready ({reaped})")
+            time.sleep(0.2)
+        out["chat_ready_s"] = time.perf_counter() - t0
+        before = scrape_metrics(dm)
+        texts = []
+        for name in names[:8]:
+            with open(os.path.join(files, name)) as f:
+                texts.append(" ".join(f.read().split()[:24]))
+        t1 = time.perf_counter()
+        for name, q in zip(names, texts):
+            code, hits = http_json(dm, "/api/query/hybrid",
+                                   {"query": q, "k": 10})
+            check(code == 200 and len(hits) == 10 and name in [
+                h["metadata"]["display_name"] for h in hits],
+                f"7f: the spawned data-manager's hybrid query for {name}")
+        out["query_ms"] = (time.perf_counter() - t1) / len(texts) * 1e3
+        t1 = time.perf_counter()
+        for i, q in enumerate(texts[:4]):
+            code, r = http_json(chat, "/api/get_chat_response",
+                                {"message": q}, user=f"create{i}@smoke")
+            check(code == 200 and r["sources"], f"7f: chat {code} {r}")
+            code, hits = http_json(dm, "/api/query/hybrid", {
+                "query": r["metadata"]["condensed_output"], "k": 5,
+                "semantic_weight": 0.4, "bm25_weight": 0.6})
+            want = as_sources([(Document(h["page_content"], h["metadata"]),
+                                h["score"]) for h in hits])
+            check(code == 200 and same_sources(r["sources"], want),
+                  "7f: the spawned chat's sources differ from its "
+                  "data-manager's hybrid search")
+        out["chat_ms"] = (time.perf_counter() - t1) / 4 * 1e3
+        after = scrape_metrics(dm)
+        rose = after.get('archi_engine_queries_total{kind="hybrid"}', 0.0) \
+            - before.get('archi_engine_queries_total{kind="hybrid"}', 0.0)
+        fallbacks = sum(v for k, v in after.items()
+                        if k.startswith("archi_fused_topk_fallbacks"))
+        check(rose >= 12 and fallbacks == 0,
+              f"7f: /metrics of the spawned data-manager: +{rose} hybrid "
+              f"queries, {fallbacks} top-k fallbacks")
+        status = mgr.status()
+        check(set(status) == {"data_manager", "chat"}
+              and all(s["alive"] for s in status.values()),
+              f"7f: status {status}")
+        t1 = time.perf_counter()
+        mgr.delete()
+        pids = [info["pid"] for info in started.values()]
+        while len(reaped) < len(pids) and time.perf_counter() - t1 < 60:
+            time.sleep(0.05)
+        gone = []
+        for pid in pids:
+            try:
+                os.kill(pid, 0)
+            except ProcessLookupError:
+                gone.append(pid)
+        out["delete_s"] = time.perf_counter() - t1
+        check(len(gone) == len(pids) and not os.path.isdir(mgr.dir),
+              f"7f: delete left {set(pids) - set(gone)} running")
+        out.update(files=CREATE_FILES, hybrid_rose=rose,
+                   exit_status=dict(reaped))
+    except BaseException:
+        for name in started:
+            path = os.path.join(mgr.dir, f"{name}.log")
+            if os.path.exists(path):
+                with open(path) as f:
+                    log(f"  7f: {name}.log:\n" + f.read()[-6000:])
+        for info in started.values():
+            try:
+                os.kill(info["pid"], signal.SIGKILL)
+            except OSError:
+                pass
+        raise
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    log(f"  7f: create: the data-manager ready ({CREATE_FILES} files ingested) "
+        f"{out['dm_ready_s']:.1f} s after the start, the chat "
+        f"{out['chat_ready_s']:.1f} s; hybrid {out['query_ms']:.1f} ms and "
+        f"chat {out['chat_ms']:.1f} ms a request over HTTP, 0 fallbacks; "
+        f"delete stopped both in {out['delete_s']:.1f} s")
+    return out
+
+
+def entry_points(results, st, overrides, texts, vocab, corpus):
+    """7f: the port's other entry points on 7d's live data-manager: the
+    grader, the account tool, the bots and the ticket processor over 7d's
+    store; the benchmark service and ``evaluate``; ``create`` and
+    ``delete`` of a deployment.  → launches by part."""
+    import importlib.util
+
+    t_part = time.perf_counter()
+    # create's deployments, read when cli/deployment.py is first imported
+    os.environ["ARCHI_TPU_DEPLOYMENTS"] = os.path.join(
+        SERVICE_TMP, "7f", "deployments")
+    out = {"packages": {name: importlib.util.find_spec(name) is not None
+                        for name in ("click", "yaml", "psycopg2",
+                                     "selenium")}}
+    log("  7f: packages on this machine: " + json.dumps(out["packages"]) +
+        " (Postgres is held on the CPU only: no server here)")
+    launches, routes, out["services"] = entry_services(
+        st, overrides, texts, vocab)
+    parts = {"entry_services": (launches, routes)}
+    eval_parts, out["evaluate"] = entry_evaluate()
+    parts.update(eval_parts)
+    try:
+        out["create"] = entry_create(corpus)
+    finally:
+        os.environ.pop("ARCHI_TPU_DEPLOYMENTS", None)
+    out["seconds"] = time.perf_counter() - t_part
+    results["service"]["entry_points"] = out
+    log(f"  7f took {out['seconds']:.1f} s")
+    return parts
 
 
 # ------------------------------------------------------------------ phase 8
@@ -3062,6 +3676,23 @@ def main() -> int:
                   bf16, True, k=5),
         topk_case("topk_b1_k20_perquery_dm_bf16", 1, SVC_CAPACITY, SVC_ROWS,
                   bf16, True, k=20),
+        # 7f: the grader's semantic search (k=3) alone, 4 and 16 at once
+        # over 7d's index; the benchmark's and evaluate's RETRIEVAL batch (the
+        # fixture's 80 questions) and a direct hybrid question (k=5, its
+        # BM25 bias one row) over the fixture's store, and evaluate
+        # --beir's hybrid query (k=100)
+        topk_case("topk_b1_k3_shared_dm_bf16", 1, SVC_CAPACITY, SVC_ROWS,
+                  bf16, False, k=3),
+        topk_case("topk_b4_k3_shared_dm_bf16", 4, SVC_CAPACITY, SVC_ROWS,
+                  bf16, False, k=3),
+        topk_case("topk_b16_k3_shared_dm_bf16", 16, SVC_CAPACITY, SVC_ROWS,
+                  bf16, False, k=3),
+        topk_case("topk_b80_shared_eval_bf16", 80, EVAL_CAPACITY, EVAL_ROWS,
+                  bf16, False),
+        topk_case("topk_b1_k5_eval_bf16", 1, EVAL_CAPACITY, EVAL_ROWS,
+                  bf16, False, k=5),
+        topk_case("topk_b1_k100_beir_bf16", 1, EVAL_CAPACITY,
+                  BEIR_TOPICS * BEIR_DOCS_PER_TOPIC, bf16, False, k=100),
     ]
     attn = [
         # ingest (256 chunks in the 128 bucket) and queries (the 64 bucket,
@@ -3094,6 +3725,11 @@ def main() -> int:
                        timed=True),
         attention_case("attn_b1_s32_bf16", 1, 32, torch.bfloat16),
         attention_case("attn_b20_s128_bf16", 20, 128, torch.bfloat16),
+        # 7f: a bot's question or a grade alone (8 x 128), the fixture's
+        # ingest by the benchmark service (32 x 256, 128 x 64)
+        attention_case("attn_b8_s128_bf16", 8, 128, torch.bfloat16),
+        attention_case("attn_b32_s256_bf16", 32, 256, torch.bfloat16),
+        attention_case("attn_b128_s64_bf16", 128, 64, torch.bfloat16),
     ]
     adc8 = [
         # path A: cell probing, one query a group (G=1) over 64 cells of up

@@ -860,3 +860,20 @@ def test_data_parallel_encode_matches_one_device(dev):
     cos = (a * b).sum(1) / (np.linalg.norm(a, axis=1) *
                             np.linalg.norm(b, axis=1))
     assert cos.min() >= 0.9999, cos.min()
+
+
+def test_evaluate_fixture_on_the_card_matches_the_cpu(dev, tmp_path):
+    """``archi-tpu-torch evaluate --fixture`` through the top-k kernel
+    gives the CPU run's totals (the plain version), but for the clocks."""
+    from archi_tpu_torch.cli.evaluate import run_evaluate
+
+    before = LAUNCHES["fused_topk"]
+    runs = [run_evaluate(fixture=True, device=d, out=str(tmp_path / d))
+            for d in ("cuda", "cpu")]
+    assert LAUNCHES["fused_topk"] > before
+    got, want = ({k: v for k, v in r["totals"].items()
+                  if k not in ("query_qps", "avg_time_elapsed")}
+                 for r in runs)
+    assert got == want and got["recall_at_k"] >= 0.99
+    assert [q["sources_metadata"] for q in runs[0]["questions"].values()] \
+        == [q["sources_metadata"] for q in runs[1]["questions"].values()]

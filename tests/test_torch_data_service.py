@@ -15,8 +15,8 @@ service (the counterpart of ``tests/integration/test_remote_vectorstore.py``),
 ``/metrics`` with the port's counters and no ``use_registry``, a restart
 that restores the checkpoint with a zero diff, the ``DATA_MANAGER_TOKEN``
 gate, the error paths, the status hold, the source-management routes of
-``tests/unit/test_data_app_sources.py``, and the refusal of a Postgres
-``app_db``.
+``tests/unit/test_data_app_sources.py`` (a Postgres ``app_db``:
+``tests/test_torch_postgres.py``).
 """
 
 import base64
@@ -457,18 +457,6 @@ def test_sources_listing(app_ctx):
     assert data["collected_counts"].get("git") == 3
     assert data["git_repos"] == ["https://git.x/lab/docs"]
     assert "configured" in data
-
-
-@pytest.mark.parametrize("dsn", ["postgresql://u:pw@db.x/archi",
-                                 "postgres://db.x/archi"])
-def test_postgres_app_db_raises(dsn, tmp_path):
-    overrides = {"app_db": dsn, "data_manager": {
-        "embedding_name": "hash", "data_path": str(tmp_path / "data"),
-        "db_path": str(tmp_path / "catalog.db")}}
-    with pytest.raises(NotImplementedError, match="Postgres") as err:
-        build_context(overrides=overrides, device="cpu")
-    assert "pw" not in str(err.value)
-    assert not (tmp_path / "data" / "app.db").exists()
 
 
 def test_build_context_takes_a_store_and_micro_batches_it(tmp_path):

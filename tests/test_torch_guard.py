@@ -84,8 +84,23 @@ def test_importing_every_module_loads_no_jax():
         "bin.service_chat", "web.chat_app", "orchestrator.archi",
         "pipelines.qa", "pipelines.agents.base_react", "providers.registry",
         "engine.remote_vectorstore")} <= set(mods)
+    # the other entry points, the Postgres backends, evaluation and the CLI
+    assert {f"archi_tpu_torch.{m}" for m in NEW_MODULES} <= set(mods)
     assert not [m for m in mods if _forbidden(m)]
 
+
+#: the modules of the other entry points, the Postgres backends,
+#: evaluation and the CLI
+NEW_MODULES = (
+    "utils.connection_pool", "data.catalog_postgres", "utils.app_db_postgres",
+    "utils.grader_service", "web.grader_ui", "web.grader_app", "web.bots",
+    "web.redmine_mailer", "data.collectors.sso", "web.js_lint",
+    "bin.service_grader", "bin.service_create_account",
+    "bin.service_mattermost", "bin.service_piazza", "bin.service_mailbox",
+    "bin.service_redmine", "bin.service_benchmark",
+    "benchmarking.fixture", "benchmarking.llm_judge", "benchmarking.harness",
+    "benchmarking.beir", "cli.registry", "cli.managers", "cli.deployment",
+    "cli.evaluate", "cli.cli_main", "version")
 
 #: what the card's machine lacks (JAX, the JAX package, and the packages
 #: the services import only inside the functions that need them), and
@@ -280,6 +295,73 @@ def test_chat_answers_where_jax_and_the_optional_packages_are_absent(
     assert got["warnings"] == [1, 2]
     assert all("cryptography" in m for m in got["messages"])
     assert not [m for m in got["modules"] if m.split(".")[0] in ABSENT]
+
+
+ENTRY_POINTS_WITHOUT_JAX = """
+import importlib, importlib.abc, json, sys
+
+ABSENT = set(sys.argv[2].split(","))
+
+
+class Absent(importlib.abc.MetaPathFinder):
+    def find_spec(self, name, path=None, target=None):
+        if name.split(".")[0] in ABSENT:
+            raise ImportError(f"no module named {name!r} on this machine")
+        return None
+
+
+sys.meta_path.insert(0, Absent())
+for name in sys.argv[3].split(","):
+    importlib.import_module("archi_tpu_torch." + name)
+
+from click.testing import CliRunner
+
+from archi_tpu_torch.bin.bootstrap import build_context
+from archi_tpu_torch.bin.service_grader import build_app
+from archi_tpu_torch.cli.cli_main import cli
+from archi_tpu_torch.web.framework import Request
+
+tmp = sys.argv[1]
+ctx = build_context(overrides={"data_manager": {
+    "embedding_name": "hash", "data_path": tmp + "/data",
+    "db_path": tmp + "/catalog.db"}}, device="cpu")
+ctx.vectorstore.add_texts(["the integral of x is x squared over two",
+                           "storage quotas are set per user"])
+app, _ = build_app(ctx=ctx)
+r = app.router.dispatch(Request("POST", "/api/grade", {}, {}, json.dumps({
+    "submission": "the integral of x", "rubric": "calculus"}).encode()))
+grade = [r.status, json.loads(r.body)]
+ctx.scheduler.stop()
+ev = CliRunner().invoke(cli, ["evaluate", "--fixture", "--device", "cpu",
+                              "-o", tmp + "/out"])
+print(json.dumps({"grade": grade, "evaluate": [ev.exit_code, ev.output],
+                  "modules": sorted(sys.modules)}))
+"""
+
+
+def test_grading_and_evaluate_run_without_jax(
+        tmp_path):
+    """In a fresh interpreter where JAX, the JAX package, requests,
+    psycopg2, selenium and cryptography cannot be imported, every new
+    module imports, the grader grades a submission over the port's store,
+    and ``evaluate --fixture --device cpu`` reports its totals."""
+    absent = ("jax", "jaxlib", "archi_tpu", "ml_dtypes", "requests",
+              "psycopg2", "selenium", "cryptography")
+    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    out = subprocess.run(
+        [sys.executable, "-c", ENTRY_POINTS_WITHOUT_JAX, str(tmp_path),
+         ",".join(absent), ",".join(NEW_MODULES)], cwd=ROOT, env=env,
+        capture_output=True, text=True, timeout=180)
+    assert out.returncode == 0, out.stderr[-3000:]
+    got = json.loads(out.stdout.strip().splitlines()[-1])
+    code, grade = got["grade"]
+    assert code == 200 and grade["status"] == "pending"
+    assert grade["grade"].startswith("ECHO:")
+    ev_code, ev_out = got["evaluate"]
+    assert ev_code == 0, ev_out
+    totals = json.loads(ev_out[:ev_out.rindex("}") + 1])
+    assert totals["n_questions"] == 80 and totals["recall_at_k"] >= 0.99
+    assert not [m for m in got["modules"] if m.split(".")[0] in absent]
 
 
 @pytest.fixture
