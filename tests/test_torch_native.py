@@ -12,6 +12,7 @@ the Python route with the same output.  Skips where there is no ``g++``.
 
 import os
 import shutil
+import subprocess
 import threading
 
 import numpy as np
@@ -26,16 +27,49 @@ from archi_tpu_torch.engine.bm25 import STOPWORDS, analyze
 from archi_tpu_torch.models.tokenizer import WordPieceTokenizer
 
 
+JAX_BUILD = {}     # the JAX library's shared and private paths
+
+
+def _file_state(path):
+    try:
+        st = os.stat(path)
+    except FileNotFoundError:
+        return None
+    return st.st_ino, st.st_size, st.st_mtime_ns
+
+
 @pytest.fixture(scope="module", autouse=True)
-def lib():
+def lib(tmp_path_factory):
+    """The port's library, and the JAX package's C++ route loaded from a
+    private build.
+
+    The JAX loader compiles straight into ``archi_tpu/native/
+    libtext_analyzer.so`` and keeps its first failed load for the life of
+    the process, so a test worker that loads that shared path while
+    another writes it keeps the Python route.  This module compiles the
+    same source with the JAX loader's flags into its own directory, points
+    the loader there for the module's tests, and restores the loader's
+    three globals exactly as they were afterwards.
+    """
     if shutil.which("g++") is None:
         pytest.skip("no g++: the native library cannot be built")
     lib = native.load_library()
     assert lib is not None, "g++ is present but the library did not build"
-    from archi_tpu.native import load_library as jax_load
+    import archi_tpu.native as jax_native
 
-    assert jax_load() is not None
-    return lib
+    JAX_BUILD.update(shared=jax_native._SO,
+                     shared_before=_file_state(jax_native._SO))
+    so = str(tmp_path_factory.mktemp("jax_native") / "libtext_analyzer.so")
+    subprocess.run(["g++", "-O3", "-shared", "-fPIC", "-std=c++17",
+                    jax_native._SRC, "-o", so],
+                   check=True, capture_output=True, timeout=120)
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(jax_native, "_SO", so)
+        mp.setattr(jax_native, "_lib", None)
+        mp.setattr(jax_native, "_tried", False)
+        assert jax_native.load_library() is not None
+        JAX_BUILD["private"] = so
+        yield lib
 
 
 ASCII = [
@@ -223,6 +257,17 @@ def test_library_builds_into_the_build_directory():
     assert os.path.exists(native.lib_path())
     here = os.listdir(os.path.dirname(native.__file__))
     assert not [f for f in here if f.endswith(".so")]
+
+
+def test_jax_route_is_loaded_from_the_private_build():
+    import archi_tpu.native as jax_native
+
+    assert jax_native._SO == JAX_BUILD["private"] != JAX_BUILD["shared"]
+    assert jax_native._lib is not None
+    assert jax_native._lib._name == JAX_BUILD["private"]
+    assert jax_analyze("Private Builds") == ["private", "builds"]
+    # the shared library was neither written nor removed
+    assert _file_state(JAX_BUILD["shared"]) == JAX_BUILD["shared_before"]
 
 
 def test_stale_library_is_rebuilt(monkeypatch, tmp_path):
