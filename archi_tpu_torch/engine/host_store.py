@@ -121,17 +121,19 @@ class HostVectorStore:
 
     def add(self, x) -> np.ndarray:
         """Append rows → their row numbers (aligned with the device index's
-        physical rows when fed from the same ingest stream)."""
+        physical rows when fed from the same ingest stream).  A bf16 store
+        takes uint16 rows as raw bf16 bit patterns, copied as they are."""
         x = np.asarray(x)
         n_new = x.shape[0]
         self._grow_to(self._n + n_new)
-        if self.bf16:
-            self._buf[self._n: self._n + n_new] = f32_to_bf16_bits(x)
-        elif x.dtype == self.dtype:
-            # same-dtype fast path: straight memcpy into the store. The
-            # f32 round-trip below allocates 2x the block in fresh pages,
-            # whose first-touch faults dominate a bulk fill.
+        if x.dtype == self.dtype:
+            # same-dtype fast path (a bf16 store's dtype is uint16: rows
+            # given as their raw bf16 bit patterns): straight memcpy into
+            # the store. The f32 round-trip below allocates 2x the block in
+            # fresh pages, whose first-touch faults dominate a bulk fill.
             self._buf[self._n: self._n + n_new] = x
+        elif self.bf16:
+            self._buf[self._n: self._n + n_new] = f32_to_bf16_bits(x)
         else:
             self._buf[self._n: self._n + n_new] = \
                 np.asarray(x, np.float32).astype(self.dtype)

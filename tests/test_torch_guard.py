@@ -96,6 +96,10 @@ def test_importing_every_module_loads_no_jax():
         "timing", "synth_corpus", "ivf_sweep", "pq_sweep")} <= set(mods)
     assert {"scripts.torch_run_config3",
             "scripts.torch_bench_streaming_ingest"} <= set(mods)
+    # the scripts of BASELINE config 4
+    assert {"scripts.torch_fill_host_store", "scripts.torch_run_config4",
+            "scripts.torch_run_config4_sharded",
+            "scripts.torch_bench_shard_scaling"} <= set(mods)
     assert not [m for m in mods if _forbidden(m)]
 
 
@@ -411,8 +415,12 @@ def test_default_device_is_cuda_and_raises_without_it(no_cuda):
     from archi_tpu_torch.benchmarking.pq_sweep import run_pq_sweep
     from archi_tpu_torch.benchmarking.synth_corpus import make_block_fn
     from archi_tpu_torch.benchmarking.timing import measure_relay_rtt
+    from scripts import torch_bench_shard_scaling as scaling
     from scripts import torch_bench_streaming_ingest as cfg5
+    from scripts import torch_fill_host_store as fill
     from scripts import torch_run_config3 as cfg3
+    from scripts import torch_run_config4 as cfg4
+    from scripts import torch_run_config4_sharded as cfg4s
 
     x = np.eye(4, 16, dtype=np.float32)
     for make in (measure_relay_rtt, lambda: synthetic_corpus_device(64, 8),
@@ -420,7 +428,12 @@ def test_default_device_is_cuda_and_raises_without_it(no_cuda):
                  lambda: run_sweep(64, 8, nlist=2),
                  lambda: run_pq_sweep(64, 8, m=2, nlist=2),
                  lambda: cfg3.run(rows=64), lambda: cfg5.phase_vector(0.1),
-                 lambda: cfg5.phase_hybrid(0.1), default_device, lambda: FlatIndex(16), BM25Index,
+                 lambda: cfg5.phase_hybrid(0.1),
+                 lambda: fill.fill(blocks=1, block_rows=64),
+                 lambda: cfg4.run(rows=64, block_rows=64),
+                 lambda: cfg4s.run(shards=1, block_rows=64),
+                 lambda: scaling.measure(rows=64),
+                 default_device, lambda: FlatIndex(16), BM25Index,
                  lambda: TorchEmbedder(config=cfg),
                  lambda: TorchVectorStore(Emb()),
                  lambda: AnnFlatIndex(16, snapshot_kind="ivfpq"),
