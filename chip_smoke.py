@@ -127,7 +127,29 @@ Phases (each fails the run with a non-zero exit):
      embeddings): recall_in_100 >= recall_strict; (e)
      ``synth_corpus.make_block_fn``: a 2^20 x 384 block pure in (seed, i),
      unit norm within 1e-2, 64 +- 2 rows a cluster.  Part 7c also checks
-     that no background refresh failed during its fill.
+     that no background refresh failed during its fill;
+ 11. BASELINE config 4 on one card through ``scripts/torch_*.py``, at 8
+     generator blocks of 2^20 rows (2^23 rows, a 6.4 GB bf16 plane; the JAX
+     script's ``--quick``), cut from config 4's 96 blocks (100,663,296 rows)
+     for the time limit: 16 blocks took this phase to 320 s and the run to
+     1,229 s on one host.  (a) ``torch_fill_host_store.fill`` of the plane
+     under ``.chip_tmp/config4``, its rate, ``free -g`` and ``df -h``, and
+     21 rows bit for bit against the generator; (b)
+     ``torch_run_config4.measure`` over it at the JAX r05 build (nlist
+     16384, block 512, m 96 + 96, spill 0.15, OPQ 4): its GT scan equal to
+     a chunked plain f32 exact scan (tie-aware, 1e-4), the host rerank's
+     scores equal to exact products with the host rows (1e-4), self_top1
+     1.0 at the largest rerank budget, the headline's recall_score_at_10 at
+     least 0.99, the ADC-only recall not falling as nprobe rises; (c)
+     ``torch_run_config4_sharded.measure``, 4 logical shards over the same
+     plane: recall@10 at least 0.9 at the largest budget, scores equal to
+     the host rows (1e-4), the comparison with (b) at equal budgets logged;
+     (d) ``torch_bench_shard_scaling.measure`` at 2^20 rows, its flat tier:
+     each sharded search equal to one index (1e-6, tie-aware) and its
+     scan-only shards, merged, equal to it.  Every top-k launch of (b)-(d)
+     takes its planned route (the CUDA-core kernel over f32 blocks, the
+     tensor cores over bf16), every ADC launch the vectorised one, with no
+     top-k fallback; each part logs the shapes it launched the kernels at.
 
 Phase 2 also holds both ADC kernels against their plain versions at the
 shapes of paths A and B, and times them with the codes in L2, just
@@ -139,8 +161,10 @@ at phase 9's shapes too (a shard of 2^20 or 2^21 rows, an empty shard, the
 half batch of the split encode; 9c adds the 8-bit ADC at a shard's probe),
 and at 7f's (the grader's k=3 searches alone, 4 and 16 at once, the
 fixture store's RETRIEVAL batch and hybrid queries, ``--beir``'s k=100,
-the benchmark service's ingest batches), and at 10a's (config 3's 8.8M
-rows of 768).  The
+the benchmark service's ingest batches), at 10a's (config 3's 8.8M
+rows of 768), and at 11's (the f32 ground truth over a 2^20-row block, an
+8-shard scaling shard, the 4-bit ADC at m = 96 for one query over 256 to
+4096 blocks and for groups of 2 and 4).  The
 last two lines are a JSON object listing the kernels and
 ``{"ok": true, "device": {...}}``.  Without CUDA, or without the rest of
 the repository beside it, the script exits non-zero and prints no result.
@@ -230,6 +254,20 @@ SWEEP_NLIST = 2048         # 10d: the IVF sweep over PATH_ROWS rows
 SWEEP_NPROBES = (4, 16, 64, 256, 2048)
 PQ_SWEEP_ROWS = 1 << 18    # 10d: the PQ sweeps
 SYNTH_BLOCK_ROWS = 1 << 20  # 10e: a block of synth_corpus
+# phase 11, BASELINE config 4 on one card: 8 generator blocks of 2^20 rows
+# (2^23 rows, a 6.4 GB plane; the JAX script's --quick), cut from config
+# 4's 96 for the time limit: 16 blocks took phase 11 to 320 s and the
+# whole run to 1,229 s on one host
+CFG4_BLOCKS = 8
+CFG4_BLOCK_ROWS = 1 << 20  # synth_corpus.BLOCK_ROWS
+CFG4_NLIST = 16384         # the JAX r05 build's (16384 // 4 a shard in 11c)
+# 11b's host-rerank sweep (npb:C): 11c's total probe budgets, 1024 to 4096
+# blocks (4096 is 17% of the 2^23 rows' blocks), at 11c's total C = 320,
+# and 4096 at C = 640
+CFG4_RERANK = "1024:320,2048:320,4096:320,4096:640"
+CFG4_SHARDS = 4            # 11c: logical shards over the plane
+CFG4_BUDGETS = (1024, 2048, 4096)   # 11c: total probe budgets
+SCALING_ROWS = 1 << 20     # 11d: fixed total rows of the shard scaling
 #: where the service phase runs: the card (the CPU only in a rehearsal of
 #: the phase at small sizes)
 DEV = "cuda"
@@ -237,6 +275,7 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 SERVICE_TMP = os.path.join(ROOT, ".chip_tmp", "service")
 TRAIN_TMP = os.path.join(ROOT, ".chip_tmp", "train")
 SHARD_TMP = os.path.join(ROOT, ".chip_tmp", "shards")
+CFG4_TMP = os.path.join(ROOT, ".chip_tmp", "config4")
 
 
 class SmokeFailure(RuntimeError):
@@ -1271,6 +1310,22 @@ def check_routes(part: str, launches: dict, routes: dict,
               f"{part}: {name} launches off the {route} route {routes}")
 
 
+def check_planned_routes(part: str, launches: dict, routes: dict, names,
+                         shapes) -> None:
+    """``check_routes``, but a top-k over an f32 corpus (as ``shapes``
+    counted them) is planned for the CUDA-core kernel and one over bf16 or
+    int8 for the tensor cores: each must have taken its plan."""
+    f32 = shapes.topk_launches("float32")
+    check(routes["fused_topk:cuda_core"] == f32 and
+          routes["fused_topk:tensor_core"] == launches["fused_topk"] - f32,
+          f"{part}: top-k launches off their planned route ({f32} over "
+          f"f32) {routes}")
+    check("fused_topk" not in names or launches["fused_topk"] > 0,
+          f"{part}: fused_topk never launched")
+    check_routes(part, launches, routes,
+                 [n for n in names if n != "fused_topk"])
+
+
 def run_clients(store, requests, during=None):
     """``requests[c]`` = the (kind, query) calls of client c, each made from
     its own thread in turn (kind "hybrid" or "semantic", k=10).  ``during``
@@ -1975,9 +2030,11 @@ def service_data_manager(results, vocab):
 # ---------------------------------------------------------------- part 7e
 class KernelShapes:
     """Counts the shapes each kernel wrapper launches at while it is
-    entered: attention's (B, S), top-k's (B, rows, bias kind, k).  It wraps
-    the names the store and the encoder call (``engine.topk.fused_topk``,
-    ``ops.attention.encoder_attention``); the wrappers still count their
+    entered: attention's (B, S), top-k's (B, rows, bias kind, k, corpus
+    dtype), the IVF-PQ search's ADC calls (wrapper, m, G, S).  It wraps the
+    names the store, the encoder and the IVF-PQ search call
+    (``engine.topk.fused_topk``, ``ops.attention.encoder_attention``,
+    ``engine.ivfpq_index._ADC``); the wrappers still count their
     launches."""
 
     def __init__(self):
@@ -1985,21 +2042,44 @@ class KernelShapes:
 
         self.attention = collections.Counter()
         self.topk = collections.Counter()
+        self.adc = collections.Counter()
         self._lock = threading.Lock()
 
+    def topk_launches(self, dtype: str) -> int:
+        """Top-k calls over a corpus of ``dtype`` (on CUDA tensors, each a
+        launch)."""
+        return sum(n for key, n in self.topk.items() if key[4] == dtype)
+
     def __enter__(self):
+        from archi_tpu_torch.engine import ivfpq_index
         from archi_tpu_torch.engine import topk as engine_topk
         from archi_tpu_torch.ops import attention
 
-        self._saved = (engine_topk.fused_topk, attention.encoder_attention)
-        topk_fn, attn_fn = self._saved
+        self._saved = (engine_topk.fused_topk, attention.encoder_attention,
+                       dict(ivfpq_index._ADC))
+        topk_fn, attn_fn, adc_fns = self._saved
 
         def fused_topk(queries, corpus, bias, n_active, *, k=10):
             with self._lock:
                 self.topk[(int(queries.shape[0]), int(corpus.shape[0]),
                            "per-query" if bias.dim() == 2 else "shared",
-                           int(k))] += 1
+                           int(k), str(corpus.dtype).replace("torch.", ""))
+                          ] += 1
             return topk_fn(queries, corpus, bias, n_active, k=k)
+
+        def adc(packed):
+            fn = adc_fns[("kernel", packed)]
+            name = "adc_scores_lut16" if packed else "adc_scores"
+
+            def call(luts, codes_t):
+                with self._lock:
+                    self.adc[(name,) + tuple(int(v) for v in luts.shape[:2])
+                             + (int(codes_t.shape[1]),)] += 1
+                return fn(luts, codes_t)
+            return call
+
+        for packed in (False, True):
+            ivfpq_index._ADC[("kernel", packed)] = adc(packed)
 
         def encoder_attention(q, k, v, key_bias, *, sm_scale):
             with self._lock:
@@ -2011,18 +2091,24 @@ class KernelShapes:
         return self
 
     def __exit__(self, *exc):
+        from archi_tpu_torch.engine import ivfpq_index
         from archi_tpu_torch.engine import topk as engine_topk
         from archi_tpu_torch.ops import attention
 
-        engine_topk.fused_topk, attention.encoder_attention = self._saved
+        engine_topk.fused_topk, attention.encoder_attention = self._saved[:2]
+        ivfpq_index._ADC.update(self._saved[2])
         return False
 
     def as_dict(self) -> dict:
+        """bf16 top-k keys carry no dtype; others end in it."""
         return {"attention_b_s": {f"{b}x{s}": n for (b, s), n in
                                   sorted(self.attention.items())},
-                "topk_b_rows_bias_k": {f"{b}x{n}:{kind}:k{k}": c
-                                       for (b, n, kind, k), c in
-                                       sorted(self.topk.items())}}
+                "topk_b_rows_bias_k": {
+                    f"{b}x{n}:{kind}:k{k}"
+                    + ("" if dt == "bfloat16" else f":{dt}"): c
+                    for (b, n, kind, k, dt), c in sorted(self.topk.items())},
+                "adc_m_g_s": {f"{name}:m{m}:g{g}:s{s_}": c for
+                              (name, m, g, s_), c in sorted(self.adc.items())}}
 
 
 def sse_events(url, path, body, user, timeout=600):
@@ -3643,11 +3729,16 @@ def multi_device(results, emb, docs, vocab):
 
 
 # ----------------------------------------------------------------- phase 10
-def counted(part: str, names, run):
+def counted(part: str, names, run, shapes=None):
     """Run ``run()`` with the launch and fallback counts set to 0 just
     before it; every named kernel must have launched, each launch on its
-    fast route, and no top-k may have fallen back.  → (run's result,
+    fast route, and no top-k may have fallen back.  With ``shapes`` (a
+    ``KernelShapes``, entered around the run) a top-k over an f32 corpus is
+    planned for the CUDA-core kernel and one over bf16 or int8 for the
+    tensor cores, and each must have taken its plan.  → (run's result,
     {part: (launches, routes)}, seconds, peak device GiB)."""
+    import contextlib
+
     import torch
 
     from archi_tpu_torch.engine import topk as engine_topk
@@ -3659,11 +3750,15 @@ def counted(part: str, names, run):
     engine_topk.FUSED_FALLBACKS["count"] = 0
     reset_launches()
     t0 = time.perf_counter()
-    out = run()
-    sync()
+    with shapes if shapes is not None else contextlib.nullcontext():
+        out = run()
+        sync()
     seconds = time.perf_counter() - t0
     launches, routes = dict(LAUNCHES), dict(ROUTE_LAUNCHES)
-    check_routes(part, launches, routes, names)
+    if shapes is None:
+        check_routes(part, launches, routes, names)
+    else:
+        check_planned_routes(part, launches, routes, names, shapes)
     check(engine_topk.FUSED_FALLBACKS["count"] == 0,
           f"{part}: top-k fell back")
     peak = torch.cuda.max_memory_allocated() / 2 ** 30 if on_card else None
@@ -3932,6 +4027,235 @@ def baseline_configs(results):
     return parts
 
 
+# ----------------------------------------------------------------- phase 11
+def machine_capacity() -> dict:
+    """``free -g`` and ``df -h`` of the plane's directory, as they print."""
+    out = {}
+    for key, cmd in (("free_g", ["free", "-g"]),
+                     ("df_h", ["df", "-h", CFG4_TMP])):
+        try:
+            out[key] = subprocess.run(cmd, capture_output=True, text=True,
+                                      timeout=30).stdout.strip()
+        except (OSError, subprocess.SubprocessError) as exc:
+            out[key] = f"unavailable: {exc}"
+    return out
+
+
+def config4_fill(results) -> str:
+    """11a: ``torch_fill_host_store.fill`` of CFG4_BLOCKS blocks into a bf16
+    plane under CFG4_TMP; its sample rows and 16 more bit for bit."""
+    import numpy as np
+
+    from archi_tpu_torch.benchmarking.synth_corpus import make_block_fn
+    from scripts import torch_fill_host_store as fill
+
+    os.makedirs(CFG4_TMP, exist_ok=True)
+    capacity = machine_capacity()
+    log("  11a machine: " + json.dumps(capacity))
+    path = os.path.join(CFG4_TMP, "config4.bf16")
+    out = fill.fill(path, blocks=CFG4_BLOCKS, block_rows=CFG4_BLOCK_ROWS,
+                    device=DEV, log=lambda _m: None)
+    n = CFG4_BLOCKS * CFG4_BLOCK_ROWS
+    check(out["rows"] == n and out["blocks_filled"] == CFG4_BLOCKS,
+          f"11a: the plane holds {out['rows']} rows, not {n}")
+    rows = np.random.default_rng(SEED + 61).choice(n, 16, replace=False)
+    fill.verify_rows(fill.open_store(path, n, 384),
+                     make_block_fn(0, CFG4_BLOCKS, block_rows=CFG4_BLOCK_ROWS,
+                                   device=DEV), rows, CFG4_BLOCK_ROWS)
+    out = dict(out, extra_verified_rows=sorted(int(r) for r in rows),
+               machine=capacity)
+    results["config4"]["fill"] = out
+    log(f"  11a: {n} rows ({n * 384 * 2 / 1e9:.1f} GB) in "
+        f"{out['seconds']:.1f} s, {out['gb_per_s']:.2f} GB/s; sample rows "
+        f"bit-identical")
+    return path
+
+
+def config4_single(results, path):
+    """11b: ``torch_run_config4.measure`` over the plane at the JAX r05
+    build (nlist 16384, block 512, spill 0.15, OPQ 4), then its gates."""
+    import numpy as np
+    import torch
+
+    from archi_tpu_torch.engine.topk import topk_lower_first
+    from scripts import torch_run_config4 as cfg4
+
+    shapes = KernelShapes()
+    n = CFG4_BLOCKS * CFG4_BLOCK_ROWS
+    (payload, state), parts, secs, peak = counted(
+        "config4", ("fused_topk", "adc_scores_lut16"),
+        lambda: cfg4.measure(None, rows=n, block_rows=CFG4_BLOCK_ROWS,
+                             store_path=path, nlist=CFG4_NLIST, block=512,
+                             spill=0.15, opq=4, rerank_sweep=CFG4_RERANK,
+                             device=DEV, log=lambda m: log("    " + m)),
+        shapes=shapes)
+    store, q, block_fn = state["store"], state["q"], state["block_fn"]
+    check(store is not None and payload["host_store"]["rows"] == n,
+          "11b: the run did not take the host plane")
+    # the GT scan against a chunked plain f32 exact scan of the same blocks
+    qd = torch.as_tensor(q, device=DEV)
+    vals, rows = [], []
+    for i in range(CFG4_BLOCKS):
+        v, p = topk_lower_first(qd @ block_fn(i).float().T, 10)
+        vals.append(v)
+        rows.append(p + i * CFG4_BLOCK_ROWS)
+    v, p = topk_lower_first(torch.cat(vals, 1), 10)
+    want_r = torch.gather(torch.cat(rows, 1), 1, p).cpu().numpy()
+    check(same_rows(state["exact_vals"], state["exact"], v.cpu().numpy(),
+                    want_r, tol=1e-4),
+          "11b: the GT scan differs from the plain f32 exact scan")
+    # the host rerank's scores: exact products with the host rows
+    err = 0.0
+    for got_v, got_r in state["rerank_out"]:
+        exact = np.einsum("bkd,bd->bk", store.get(got_r.reshape(-1))
+                          .reshape(*got_r.shape, -1), q)
+        err = max(err, float(np.abs(got_v - exact).max()))
+    check(err <= 1e-4, f"11b: rerank scores off the host rows by {err:.3g}")
+    sweep, rerank = payload["nprobe_sweep"], payload["rerank_sweep"]
+    largest = max(rerank, key=lambda e: (e["nprobe_blocks"], e["rerank_c"]))
+    check(largest["self_top1"] == 1.0,
+          f"11b: self_top1 {largest['self_top1']} at the largest budget")
+    check(payload["headline"].get("recall_score_at_10", 0) >= 0.99,
+          f"11b: headline {payload['headline']} below 0.99")
+    recall = [e["recall_strict_at_10"] for e in sweep]
+    check(all(a <= b for a, b in zip(recall, recall[1:])),
+          f"11b: ADC-only recall falls with nprobe {recall}")
+    idx = state["index"]
+    out = dict(payload, seconds=secs, peak_gib=peak,
+               rerank_score_max_abs_err=err, shapes=shapes.as_dict(),
+               n_code_blocks=int(idx.code_blocks.shape[0]),
+               max_bpc=int(idx.cell_blocks.shape[1]))
+    del state, idx, store
+    torch.cuda.empty_cache()
+    results["config4"]["single"] = out
+    log("  11b: " + json.dumps({k: out[k] for k in (
+        "build_s", "codes_gb", "exact_gt_scan_s", "relay_rtt_ms", "headline",
+        "seconds", "peak_gib", "rerank_score_max_abs_err", "n_code_blocks",
+        "max_bpc")}))
+    log("  11b shapes: " + json.dumps(out["shapes"]))
+    return parts
+
+
+def config4_sharded(results, path):
+    """11c: ``torch_run_config4_sharded.measure`` with CFG4_SHARDS logical
+    shards over the plane: recall@10 at least 0.9 at the largest budget,
+    scores equal to the host rows; the comparison with 11b at equal total
+    budgets logged."""
+    import numpy as np
+    import torch
+
+    from scripts import torch_run_config4_sharded as cfg4s
+
+    shapes = KernelShapes()
+    (payload, state), parts, secs, peak = counted(
+        "config4_sharded", ("fused_topk", "adc_scores_lut16"),
+        lambda: cfg4s.measure(None, shards=CFG4_SHARDS, store_path=path,
+                              budgets=CFG4_BUDGETS, nlist=CFG4_NLIST,
+                              block_rows=CFG4_BLOCK_ROWS, device=DEV,
+                              log=lambda m: log("    " + m)),
+        shapes=shapes)
+    parent, q = state["parent"], state["q"]
+    err = 0.0
+    for got_v, got_r in state["searches"]:
+        exact = np.einsum("bkd,bd->bk", parent.get(got_r.reshape(-1))
+                          .reshape(*got_r.shape, -1), q)
+        err = max(err, float(np.abs(got_v - exact).max()))
+    check(err <= 1e-4, f"11c: scores off the host rows by {err:.3g}")
+    last = payload["sweep"][-1]
+    check(last["recall_strict_at_10"] >= 0.9,
+          f"11c: recall@10 {last['recall_strict_at_10']} < 0.9")
+    single = {e["nprobe_blocks"]: e for e in
+              results["config4"]["single"]["rerank_sweep"]
+              if e["rerank_c"] == last["total_rerank_c"]}
+    parity = [{"budget": e["total_probe_blocks"],
+               "sharded": {k: e[k] for k in ("recall_strict_at_10",
+                                             "recall_score_at_10",
+                                             "query_qps")},
+               "single": {k: single[e["total_probe_blocks"]][k] for k in (
+                   "recall_strict_at_10", "recall_score_at_10",
+                   "query_qps")} if e["total_probe_blocks"] in single
+               else None} for e in payload["sweep"]]
+    del state
+    torch.cuda.empty_cache()
+    out = dict(payload, seconds=secs, peak_gib=peak, score_max_abs_err=err,
+               parity_with_11b=parity, shapes=shapes.as_dict())
+    results["config4"]["sharded"] = out
+    log("  11c: " + json.dumps({k: out[k] for k in (
+        "build_s", "seconds", "peak_gib", "score_max_abs_err")}))
+    log("  11c against 11b at equal budgets: " + json.dumps(parity))
+    log("  11c shapes: " + json.dumps(out["shapes"]))
+    return parts
+
+
+def shard_scaling(results):
+    """11d: ``torch_bench_shard_scaling.measure`` at SCALING_ROWS, its flat
+    tier (the script's ``--skip-xl``: the XL tier's four builds took 84 of
+    11d's 126 s, and 11c and 9d measure the same sharded XL search and its
+    profile split): each sharded flat index's search equals one index over
+    its rows (1e-6, tie-aware), and its scan-only shards, merged, equal
+    it."""
+    import torch
+
+    from archi_tpu_torch.engine.flat_index import FlatIndex
+    from archi_tpu_torch.engine.sharded_index import _merge
+    from scripts import torch_bench_shard_scaling as scaling
+
+    kept = []
+    shapes = KernelShapes()
+    payload, parts, secs, peak = counted(
+        "shard_scaling", ("fused_topk",),
+        lambda: scaling.measure(
+            None, rows=SCALING_ROWS, skip_xl=True, device=DEV,
+            keep=lambda _kind, s, idx: kept.append((s, idx)),
+            log=lambda m: log("    " + m)),
+        shapes=shapes)
+    g = torch.Generator(device=DEV).manual_seed(SEED + 71)
+    q = torch.nn.functional.normalize(
+        torch.randn(32, 384, device=DEV, generator=g), dim=1)
+    for s, idx in kept:
+        one = FlatIndex(384, normalize=False, device=DEV)
+        one.add(idx.emb[:idx.n_rows], list(range(idx.n_rows)))
+        want_v, want_r = one.search_dispatch(q, k=10)
+        got_v, got_r = idx.search_dispatch(q, k=10)
+        check(same_rows(got_v.cpu().numpy(), got_r.cpu().numpy(),
+                        want_v.cpu().numpy(), want_r.cpu().numpy(),
+                        tol=1e-6),
+              f"11d: {s} shards differ from one index")
+        parts_ = scaling.scan_only(idx, q)
+        mv, mr = _merge(torch.cat([v for v, _r in parts_], 1),
+                        torch.cat([r for _v, r in parts_], 1), 10)
+        check(torch.equal(mv, got_v) and torch.equal(mr, got_r),
+              f"11d: {s} shards' scan-only results, merged, differ")
+        del one
+    check([s for s, _i in kept] == list(scaling.SHARD_COUNTS),
+          f"11d: flat indexes at {[s for s, _i in kept]} shards")
+    del kept
+    torch.cuda.empty_cache()
+    out = dict(payload, seconds=secs, peak_gib=peak, shapes=shapes.as_dict())
+    results["config4"]["shard_scaling"] = out
+    log(f"  11d: {secs:.1f} s, peak {peak} GiB; shapes "
+        + json.dumps(out["shapes"]))
+    return parts
+
+
+def config4(results):
+    """Phase 11, parts 11a-11d; each of 11b-11d runs with the counts set to
+    0 just before it.  → launches by part."""
+    import gc
+
+    import torch
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    results["config4"] = {}
+    path = config4_fill(results)
+    parts = config4_single(results, path)
+    parts.update(config4_sharded(results, path))
+    os.remove(path)
+    parts.update(shard_scaling(results))
+    return parts
+
+
 def main() -> int:
     import torch
 
@@ -4048,6 +4372,13 @@ def main() -> int:
                   bf16, False, timed=True),
         topk_case("topk_b64_sweep_bf16", 64, PATH_ROWS, PATH_ROWS, bf16,
                   False, timed=True),
+        # 11b / 11c: config 4's exact ground truth, B=32 over one generator
+        # block of 2^20 x 384 upcast to f32 (the CUDA-core kernel); 11d: a
+        # shard of the scaling's 2^20 rows at 8 shards
+        topk_case("topk_b32_config4_gt_f32", 32, 1 << 20, 1 << 20,
+                  torch.float32, False, timed=True),
+        topk_case("topk_b32_scaling_shard8_bf16", 32, 1 << 17, 1 << 17,
+                  bf16, False),
     ]
     attn = [
         # ingest (256 chunks in the 128 bucket) and queries (the 64 bucket,
@@ -4105,6 +4436,16 @@ def main() -> int:
         adc_case("adc4_g2_m48_s131072", 48, 2, 1 << 17, True, timed=True),
         adc_case("adc4_g1_m48_s999999", 48, 1, 999_999, True),
         adc_case("adc4_g256_m96_s4097", 96, 256, 4097, True),
+        # 11b: config 4's block probing, m=96 (48 packed bytes a row), one
+        # query a group over npb blocks of 512: npb 4096 (the largest
+        # budget), 1024 (11c's largest a shard), 256 (11c's smallest);
+        # its ADC-only cell probing, groups of 4 and 2
+        adc_case("adc4_g1_m96_s2097152", 96, 1, 4096 * 512, True,
+                 timed=True),
+        adc_case("adc4_g1_m96_s524288", 96, 1, 1024 * 512, True),
+        adc_case("adc4_g1_m96_s131072", 96, 1, 256 * 512, True),
+        adc_case("adc4_g4_m96_s65536", 96, 4, 1 << 16, True),
+        adc_case("adc4_g2_m96_s131072", 96, 2, 1 << 17, True),
     ]
     results["topk"], results["attention"] = topk, attn
     results["adc_scores"], results["adc_scores_lut16"] = adc8, adc4
@@ -4160,6 +4501,15 @@ def main() -> int:
     parts.update(baseline_configs(results))
     results["baseline"]["seconds"] = time.perf_counter() - t0
     log(f"  phase 10 took {results['baseline']['seconds']:.1f} s ({card})")
+
+    log(f"phase 11: BASELINE config 4 on one card ({CFG4_BLOCKS} blocks)")
+    t0 = time.perf_counter()
+    try:
+        parts.update(config4(results))
+    finally:
+        shutil.rmtree(CFG4_TMP, ignore_errors=True)
+    results["config4"]["seconds"] = time.perf_counter() - t0
+    log(f"  phase 11 took {results['config4']['seconds']:.1f} s ({card})")
     # each path and part ran with the counts set to 0 just before it
     results["launches"] = {"main": launches, "path_a": launches_a,
                            "path_b": launches_b}

@@ -164,7 +164,7 @@ def bench_xl(n_total: int, devices, rng):
 
 
 def measure(out_path=None, *, rows: int = 1 << 20, skip_xl: bool = False,
-            shard_counts=SHARD_COUNTS, device=None, keep=None, log=print):
+            device=None, keep=None, log=print):
     """Both tiers at every shard count → the JAX script's payload.
     ``device``: the card unless ``"cpu"``; the shards are logical shards
     of it.  ``keep(kind, shards, index)``, when given, sees each index
@@ -174,7 +174,7 @@ def measure(out_path=None, *, rows: int = 1 << 20, skip_xl: bool = False,
     dev = default_device(device)
     rng = np.random.default_rng(11)
     flat_rows, xl_rows = [], []
-    for s in shard_counts:
+    for s in SHARD_COUNTS:
         row, idx = bench_flat(rows, [dev] * s, rng)
         log("flat " + json.dumps(row))
         flat_rows.append(row)
@@ -182,7 +182,7 @@ def measure(out_path=None, *, rows: int = 1 << 20, skip_xl: bool = False,
             keep("flat", s, idx)
         del idx
     if not skip_xl:
-        for s in shard_counts:
+        for s in SHARD_COUNTS:
             row, idx = bench_xl(rows, [dev] * s, rng)
             log("xl " + json.dumps(row))
             xl_rows.append(row)
@@ -191,7 +191,7 @@ def measure(out_path=None, *, rows: int = 1 << 20, skip_xl: bool = False,
             del idx
     payload = {
         "setup": (
-            f"fixed total rows = {rows}, dim 384, {max(shard_counts)} "
+            f"fixed total rows = {rows}, dim 384, {max(SHARD_COUNTS)} "
             f"logical shards of one {dev.type} device at most (per-shard "
             "scans serialise on it; the measurement is the merge columns "
             "against the shard count, and that they stay bytes-sized)"),

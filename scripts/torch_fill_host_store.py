@@ -72,8 +72,7 @@ def verify_rows(store, block_fn, rows, block_rows: int) -> None:
 
 
 def fill(out: str = DEFAULT_OUT, *, blocks: int = 96, block_rows=None,
-         sub_rows: int = SUB_ROWS, seed: int = 0, device=None,
-         log=print) -> dict:
+         sub_rows: int = SUB_ROWS, device=None, log=print) -> dict:
     """Fill ``out`` with ``blocks`` generator blocks (resuming at the
     store's row count), flush, and check sample rows bit for bit.  →
     {rows, blocks_filled, seconds, gb_per_s, verified_rows, path}.
@@ -94,7 +93,7 @@ def fill(out: str = DEFAULT_OUT, *, blocks: int = 96, block_rows=None,
     log(f"filling blocks {start_block}..{blocks - 1} "
         f"({(blocks - start_block) * block_rows * D * 2 / 1e9:.1f} GB to "
         f"copy)")
-    block_fn = make_block_fn(seed, blocks, block_rows=block_rows, device=dev)
+    block_fn = make_block_fn(0, blocks, block_rows=block_rows, device=dev)
     t_start = time.perf_counter()
     for i in range(start_block, blocks):
         t0 = time.perf_counter()

@@ -159,7 +159,6 @@ def measure(out_path=None, *, rows=None, quick: bool = False,
             drop_refine: bool = False, bc_dtype: str = "bf16",
             no_adc: bool = False, dev_sweep=None, rerank_sweep=None,
             extract: str = "auto", hier_t: int = 64, rtt_ms=None,
-            nprobes=NPROBES, m: int = 96, refine_m: int = 96,
             block_rows=None, device=None, log=print):
     """The whole protocol → ``(payload, state)``: the JAX script's payload
     (None with ``gt_only``, which saves the GT cache instead) and what a
@@ -253,7 +252,7 @@ def measure(out_path=None, *, rows=None, quick: bool = False,
     else:
         idx = IVFPQIndex.build_streaming(
             block_fn, n_blocks, block_rows,
-            nlist=nlist, block=block, m=m, ksub=16, refine_m=refine_m,
+            nlist=nlist, block=block, m=96, ksub=16, refine_m=96,
             train_blocks=2, train_sample=1 << 21, coarse_iters=8,
             pq_iters=10, seed=0, spill_frac=spill, opq_iters=opq,
             device=dev)
@@ -370,7 +369,7 @@ def measure(out_path=None, *, rows=None, quick: bool = False,
 
     # --- ADC-only nprobe sweep (quantization-bound recall)
     sweep = []
-    for nprobe in () if no_adc else nprobes:
+    for nprobe in () if no_adc else NPROBES:
         _vals, rows_d = idx.search_dispatch(qd, k=K, nprobe=nprobe,
                                             refine_overfetch=16)
         rows_h = rows_d.cpu().numpy()
@@ -491,7 +490,7 @@ def measure(out_path=None, *, rows=None, quick: bool = False,
     payload = {
         "config": f"BASELINE config 4 on one card (PyTorch/CUDA port): "
                   f"{n}-chunk IVF-PQ with refinement (4-bit LUT16, "
-                  f"m={m}+{refine_m} packed = {(m + refine_m) // 2} B/row, "
+                  f"m=96+96 packed = 96 B/row, "
                   f"nlist={nlist}, block={block}, block-budget probing by "
                   f"per-block mini-centroids) + host bf16 exact-rerank tier "
                   f"({n * D * 2 / 1e9:.1f} GB memmap) — codes "

@@ -48,14 +48,14 @@ REPS, TRIALS = 6, 3
 
 def measure(out_path=None, *, shards: int = 4, blocks_per_shard=None,
             store_path=None, budgets=BUDGETS, merge_into=None,
-            nlist: int = 16384, block_rows=None,
-            device=None, devices=None, log=print):
+            nlist: int = 16384, block_rows=None, device=None, log=print):
     """Build the sharded tier over the plane, then the parity sweep →
     ``(payload, state)``: the JAX script's payload and what a caller checks
     it with (``index``, ``parent`` store, ``q``, ``q_src``, ``exact``,
     ``exact_vals``, ``searches``: each budget's (vals, rows)).
-    ``device``: the card unless ``"cpu"`` (``devices``, one a shard,
-    defaults to it repeated); ``block_rows`` must be the fill's."""
+    ``device``: the card unless ``"cpu"``, repeated for the shards;
+    ``nlist`` (the total, cut by the shard count) and ``block_rows`` (the
+    fill's) cut the run for a dry run."""
     import torch
 
     from archi_tpu_torch.benchmarking.synth_corpus import (BLOCK_ROWS, D,
@@ -100,7 +100,7 @@ def measure(out_path=None, *, shards: int = 4, blocks_per_shard=None,
             f"shard {s} plane rows != device-regenerated rows"
     log("snapshot sources verified bit-identical vs shard planes")
     idx = ShardedXlPQIndex(
-        D, devices=devices if devices is not None else [dev] * shards,
+        D, devices=[dev] * shards,
         stores=views, normalize=False, snapshot_sources=sources,
         nlist=nlist // shards, block=512, pq_m=96, pq_refine_m=96,
         ksub=16, pq_spill=0.15, pq_opq_iters=4,

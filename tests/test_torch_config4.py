@@ -280,8 +280,8 @@ def test_config4_run_has_the_jax_payload(plane, one_batch, tmp_path):
     out = tmp_path / "config4.json"
     payload, state = cfg4.measure(
         out, rows=N_BLOCKS * BLOCK_ROWS, block_rows=BLOCK_ROWS,
-        store_path=path, nlist=32, block=128, spill=0.15, opq=2, m=16,
-        refine_m=16, nprobes=(2, 4), dev_sweep="2:40,4:80:2",
+        store_path=path, nlist=32, block=128, spill=0.15, opq=2,
+        dev_sweep="2:40,4:80:2",
         rerank_sweep="8:40,16:80:1:2,cell:8:160", device="cpu",
         log=lambda _m: None)
     assert json.loads(out.read_text()) == payload
@@ -289,7 +289,7 @@ def test_config4_run_has_the_jax_payload(plane, one_batch, tmp_path):
     for target, entries in (("sweep", payload["nprobe_sweep"]),
                             ("dev_sweep", payload["dev_sweep"]),
                             ("rerank_sweep", payload["rerank_sweep"])):
-        assert len(entries) in (2, 3)
+        assert len(entries) in (2, 3, 4)
         for e in entries:
             assert set(_payload_keys("run_config4.py", target=target)) \
                 <= set(e), target
@@ -366,8 +366,7 @@ def test_sharded_run_recall_and_host_scores(plane, one_batch):
     path, _out = plane
     payload, state = cfg4s.measure(
         shards=2, store_path=path, budgets=(16, 64), nlist=128,
-        block_rows=BLOCK_ROWS, device="cpu", devices=["cpu"] * 2,
-        log=lambda _m: None)
+        block_rows=BLOCK_ROWS, device="cpu", log=lambda _m: None)
     assert list(payload) == _payload_keys("run_config4_sharded.py")
     for e in payload["sweep"]:
         assert set(_payload_keys("run_config4_sharded.py",
@@ -404,15 +403,16 @@ def test_shard_scan_only_merged_equals_the_full_search():
     assert not np.isin(rows.numpy(), np.arange(0, 20_000, 7)).any()
 
 
-def test_shard_scaling_has_the_jax_payload(tmp_path):
+def test_shard_scaling_has_the_jax_payload(tmp_path, monkeypatch):
     import json
 
     from scripts import torch_bench_shard_scaling as scaling
 
+    monkeypatch.setattr(scaling, "SHARD_COUNTS", (1, 2))
     seen = []
     out = tmp_path / "scaling.json"
-    payload = scaling.measure(out, rows=1 << 13, shard_counts=(1, 2),
-                              device="cpu", log=lambda _m: None,
+    payload = scaling.measure(out, rows=1 << 13, device="cpu",
+                              log=lambda _m: None,
                               keep=lambda kind, s, idx: seen.append(
                                   (kind, s, len(idx))))
     assert json.loads(out.read_text()) == payload
