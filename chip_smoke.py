@@ -4041,6 +4041,19 @@ def machine_capacity() -> dict:
     return out
 
 
+def host_score_err(store, q, results) -> float:
+    """Largest gap between the (vals, rows) ``results`` of queries ``q``
+    and the exact products of ``q`` with the host plane's rows."""
+    import numpy as np
+
+    err = 0.0
+    for vals, rows in results:
+        rows_f32 = store.get(rows.reshape(-1)).reshape(*rows.shape, -1)
+        err = max(err, float(np.abs(
+            vals - np.einsum("bkd,bd->bk", rows_f32, q)).max()))
+    return err
+
+
 def config4_fill(results) -> str:
     """11a: ``torch_fill_host_store.fill`` of CFG4_BLOCKS blocks into a bf16
     plane under CFG4_TMP; its sample rows and 16 more bit for bit."""
@@ -4074,7 +4087,6 @@ def config4_fill(results) -> str:
 def config4_single(results, path):
     """11b: ``torch_run_config4.measure`` over the plane at the JAX r05
     build (nlist 16384, block 512, spill 0.15, OPQ 4), then its gates."""
-    import numpy as np
     import torch
 
     from archi_tpu_torch.engine.topk import topk_lower_first
@@ -4104,12 +4116,7 @@ def config4_single(results, path):
     check(same_rows(state["exact_vals"], state["exact"], v.cpu().numpy(),
                     want_r, tol=1e-4),
           "11b: the GT scan differs from the plain f32 exact scan")
-    # the host rerank's scores: exact products with the host rows
-    err = 0.0
-    for got_v, got_r in state["rerank_out"]:
-        exact = np.einsum("bkd,bd->bk", store.get(got_r.reshape(-1))
-                          .reshape(*got_r.shape, -1), q)
-        err = max(err, float(np.abs(got_v - exact).max()))
+    err = host_score_err(store, q, state["rerank_out"])
     check(err <= 1e-4, f"11b: rerank scores off the host rows by {err:.3g}")
     sweep, rerank = payload["nprobe_sweep"], payload["rerank_sweep"]
     largest = max(rerank, key=lambda e: (e["nprobe_blocks"], e["rerank_c"]))
@@ -4141,7 +4148,6 @@ def config4_sharded(results, path):
     shards over the plane: recall@10 at least 0.9 at the largest budget,
     scores equal to the host rows; the comparison with 11b at equal total
     budgets logged."""
-    import numpy as np
     import torch
 
     from scripts import torch_run_config4_sharded as cfg4s
@@ -4154,12 +4160,7 @@ def config4_sharded(results, path):
                               block_rows=CFG4_BLOCK_ROWS, device=DEV,
                               log=lambda m: log("    " + m)),
         shapes=shapes)
-    parent, q = state["parent"], state["q"]
-    err = 0.0
-    for got_v, got_r in state["searches"]:
-        exact = np.einsum("bkd,bd->bk", parent.get(got_r.reshape(-1))
-                          .reshape(*got_r.shape, -1), q)
-        err = max(err, float(np.abs(got_v - exact).max()))
+    err = host_score_err(state["parent"], state["q"], state["searches"])
     check(err <= 1e-4, f"11c: scores off the host rows by {err:.3g}")
     last = payload["sweep"][-1]
     check(last["recall_strict_at_10"] >= 0.9,
@@ -4439,13 +4440,14 @@ def main() -> int:
         # 11b: config 4's block probing, m=96 (48 packed bytes a row), one
         # query a group over npb blocks of 512: npb 4096 (the largest
         # budget), 1024 (11c's largest a shard), 256 (11c's smallest);
-        # its ADC-only cell probing, groups of 4 and 2
+        # its ADC-only cell probing at 8 blocks (at most 3 blocks a cell):
+        # groups of 4 at nprobe 16, of 2 at nprobe 32
         adc_case("adc4_g1_m96_s2097152", 96, 1, 4096 * 512, True,
                  timed=True),
         adc_case("adc4_g1_m96_s524288", 96, 1, 1024 * 512, True),
         adc_case("adc4_g1_m96_s131072", 96, 1, 256 * 512, True),
-        adc_case("adc4_g4_m96_s65536", 96, 4, 1 << 16, True),
-        adc_case("adc4_g2_m96_s131072", 96, 2, 1 << 17, True),
+        adc_case("adc4_g4_m96_s98304", 96, 4, 16 * 3 * 512 * 4, True),
+        adc_case("adc4_g2_m96_s98304", 96, 2, 32 * 3 * 512 * 2, True),
     ]
     results["topk"], results["attention"] = topk, attn
     results["adc_scores"], results["adc_scores_lut16"] = adc8, adc4
