@@ -4375,10 +4375,15 @@ def main() -> int:
                   False, timed=True),
         # 11b / 11c: config 4's exact ground truth, B=32 over one generator
         # block of 2^20 x 384 upcast to f32 (the CUDA-core kernel); 11d: a
-        # shard of the scaling's 2^20 rows at 8 shards
+        # shard of the scaling's 2^20 rows at 8, 4 and 2 shards (1: the
+        # 2^20-row shard above)
         topk_case("topk_b32_config4_gt_f32", 32, 1 << 20, 1 << 20,
                   torch.float32, False, timed=True),
         topk_case("topk_b32_scaling_shard8_bf16", 32, 1 << 17, 1 << 17,
+                  bf16, False),
+        topk_case("topk_b32_scaling_shard4_bf16", 32, 1 << 18, 1 << 18,
+                  bf16, False),
+        topk_case("topk_b32_scaling_shard2_bf16", 32, 1 << 19, 1 << 19,
                   bf16, False),
     ]
     attn = [
@@ -4437,14 +4442,16 @@ def main() -> int:
         adc_case("adc4_g2_m48_s131072", 48, 2, 1 << 17, True, timed=True),
         adc_case("adc4_g1_m48_s999999", 48, 1, 999_999, True),
         adc_case("adc4_g256_m96_s4097", 96, 256, 4097, True),
-        # 11b: config 4's block probing, m=96 (48 packed bytes a row), one
-        # query a group over npb blocks of 512: npb 4096 (the largest
-        # budget), 1024 (11c's largest a shard), 256 (11c's smallest);
-        # its ADC-only cell probing at 8 blocks (at most 3 blocks a cell):
-        # groups of 4 at nprobe 16, of 2 at nprobe 32
+        # 11b / 11c: config 4's block probing, m=96 (48 packed bytes a
+        # row), one query a group over npb blocks of 512: npb 4096 (the
+        # largest budget), 2048, 1024 (11c's largest a shard), 512, 256
+        # (11c's smallest); 11b's ADC-only cell probing at 8 blocks (at
+        # most 3 blocks a cell): groups of 4 at nprobe 16, of 2 at 32
         adc_case("adc4_g1_m96_s2097152", 96, 1, 4096 * 512, True,
                  timed=True),
+        adc_case("adc4_g1_m96_s1048576", 96, 1, 2048 * 512, True),
         adc_case("adc4_g1_m96_s524288", 96, 1, 1024 * 512, True),
+        adc_case("adc4_g1_m96_s262144", 96, 1, 512 * 512, True),
         adc_case("adc4_g1_m96_s131072", 96, 1, 256 * 512, True),
         adc_case("adc4_g4_m96_s98304", 96, 4, 16 * 3 * 512 * 4, True),
         adc_case("adc4_g2_m96_s98304", 96, 2, 32 * 3 * 512 * 2, True),
