@@ -17,7 +17,10 @@ and L2 normalisation.  Covers the MiniLM / bge-small / bge-base families.
 - ``embed`` is the differentiable forward pass; ``encode`` and
   ``encode_tokens`` run under ``torch.inference_mode``.  Attention is
   ``ops.attention.differentiable_attention``: the kernel's forward, and a
-  gradient recomputed through the plain version under autograd.
+  gradient recomputed through the plain version under autograd.  The JAX
+  package's ``attention_impl`` argument selects it: ``"kernel"`` (the
+  default; the JAX ``"pallas"``) or ``"plain"`` (``plain_attention``, the
+  JAX ``"xla"``), which runs only when a caller names it.
 """
 
 from __future__ import annotations
@@ -30,7 +33,11 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from archi_tpu_torch.ops.attention import differentiable_attention
+from archi_tpu_torch.ops.attention import (differentiable_attention,
+                                           plain_attention)
+
+#: ``attention_impl`` → the attention a layer calls
+ATTENTION = {"kernel": differentiable_attention, "plain": plain_attention}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -135,7 +142,8 @@ class EncoderLayer(nn.Module):
         self.ffn_o = nn.Linear(f, h)
         self.ffn_ln = nn.LayerNorm(h, eps=config.layer_norm_eps)
 
-    def forward(self, x: torch.Tensor, key_bias: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, key_bias: torch.Tensor,
+                attention_impl: str = "kernel") -> torch.Tensor:
         """x: [B, S, H]; key_bias: [B, S] f32 (0 real, -1e9 padding)."""
         b, s, h = x.shape
         nh = self.num_heads
@@ -143,8 +151,8 @@ class EncoderLayer(nn.Module):
         qkv = _linear(x, self.qkv)                          # [B, S, 3H]
         q, k, v = (qkv[..., i * h:(i + 1) * h].view(b, s, nh, hd)
                    for i in range(3))
-        ctx = differentiable_attention(q, k, v, key_bias,
-                                       sm_scale=1.0 / math.sqrt(hd))
+        ctx = ATTENTION[attention_impl](q, k, v, key_bias,
+                                        sm_scale=1.0 / math.sqrt(hd))
         x = _layer_norm(x + _linear(ctx.view(b, s, h), self.o), self.attn_ln)
         inter = F.gelu(_linear(x, self.ffn_i).float(),
                        approximate="none").to(x.dtype)
@@ -196,8 +204,13 @@ class BertEncoder(nn.Module):
         model.compute_dtype = compute_dtype
         return model.train().requires_grad_(True)
 
-    def forward(self, input_ids, attention_mask, token_type_ids=None):
-        """input_ids, attention_mask: [B, S] → [B, S, H] in compute dtype."""
+    def forward(self, input_ids, attention_mask, token_type_ids=None,
+                attention_impl: str = "kernel"):
+        """input_ids, attention_mask: [B, S] → [B, S, H] in compute dtype;
+        ``attention_impl``: ``"kernel"`` or ``"plain"``."""
+        if attention_impl not in ATTENTION:
+            raise ValueError(f"attention_impl {attention_impl!r}: expected "
+                             f"one of {sorted(ATTENTION)}")
         s = input_ids.shape[1]
         x = self.word(input_ids) + self.position.weight[:s][None, :, :]
         if token_type_ids is None:
@@ -207,16 +220,17 @@ class BertEncoder(nn.Module):
         x = _layer_norm(x, self.emb_ln).to(self.compute_dtype)
         key_bias = (1.0 - attention_mask.float()) * -1e9
         for layer in self.layers:
-            x = layer(x, key_bias)
+            x = layer(x, key_bias, attention_impl)
         return x
 
 
 def embed(model: BertEncoder, input_ids, attention_mask,
-          token_type_ids=None) -> torch.Tensor:
+          token_type_ids=None, attention_impl: str = "kernel") -> torch.Tensor:
     """Forward pass → pooled, (optionally) L2-normalized [B, H] f32, under
     autograd when it is on (the trainer's loss)."""
     config = model.config
-    x = model(input_ids, attention_mask, token_type_ids).float()
+    x = model(input_ids, attention_mask, token_type_ids,
+              attention_impl).float()
     m = attention_mask.float()[:, :, None]
     if config.pooling == "cls":
         pooled = x[:, 0, :]
@@ -235,13 +249,17 @@ def embed(model: BertEncoder, input_ids, attention_mask,
 
 @torch.inference_mode()
 def encode(model: BertEncoder, input_ids, attention_mask,
-           token_type_ids=None) -> torch.Tensor:
+           token_type_ids=None, *, attention_impl: str = "kernel"
+           ) -> torch.Tensor:
     """Forward pass → pooled, (optionally) L2-normalized [B, H] f32."""
-    return embed(model, input_ids, attention_mask, token_type_ids)
+    return embed(model, input_ids, attention_mask, token_type_ids,
+                 attention_impl)
 
 
 @torch.inference_mode()
 def encode_tokens(model: BertEncoder, input_ids, attention_mask,
-                  token_type_ids=None) -> torch.Tensor:
+                  token_type_ids=None, *, attention_impl: str = "kernel"
+                  ) -> torch.Tensor:
     """Forward pass → per-token hidden states [B, S, H] f32 (no pooling)."""
-    return model(input_ids, attention_mask, token_type_ids).float()
+    return model(input_ids, attention_mask, token_type_ids,
+                 attention_impl).float()

@@ -52,10 +52,11 @@ Phases (each fails the run with a non-zero exit):
      tail, micro-batched hybrid and semantic queries, recall, exact scores
      and a save/load round trip; (d) the port's data-manager service over
      HTTP (``bin/service_data_manager.build_app``, flat bf16, micro-batching
-     at the defaults): 4,096 local files of about 4 KB (cut from 16,384)
-     ingested by its initial ingestion (every file ``embedded``, the count
-     equal to the corpus's chunks, the index at phase 2's top-k shape), 64
-     clients x 8 ``POST /api/query/hybrid`` through
+     at the defaults): 2,048 local files of about 4 KB (cut from 16,384,
+     then 8,192 and 4,096 for the time limit) ingested by its initial
+     ingestion (every file ``embedded``, the count equal to the corpus's
+     chunks, the index at phase 2's top-k shape), 64 clients x 8 ``POST
+     /api/query/hybrid`` through
      ``urllib``, each answer equal to the direct path, a restart that
      restores the checkpoint with a zero diff and the same top-10, then
      semantic queries, 16 uploads and a resync, a delete, ``/metrics`` and
@@ -116,8 +117,9 @@ Phases (each fails the run with a non-zero exit):
      made by ``synthetic_corpus_device``, self-recall 1.0, one B=32 batch
      equal to a chunked f32 exact scan (tie-aware, 1e-4); (b) config 5's
      phase A (``torch_bench_streaming_ingest.phase_vector``), 2^23 - 2^17
-     rows in a 2^23-row index, 1024-row batches every 2 s for 20 s (cut
-     from 45 s) under B=32 queries: at least 10,000 rows/min, no growth,
+     rows in a 2^23-row index, 1024-row batches every 2 s for 10 s (cut
+     from 45 s, then 20 s, for the time limit) under B=32 queries: at
+     least 10,000 rows/min, no growth,
      one row of every batch read back at rank 1; (c) its phase B at 2^20
      rows with 200,000 live BM25 documents: no full BM25 build during the
      stream, a final hybrid query equal to brute force, every text through
@@ -150,6 +152,38 @@ Phases (each fails the run with a non-zero exit):
      takes its planned route (the CUDA-core kernel over f32 blocks, the
      tensor cores over bf16), every ADC launch the vectorised one, with no
      top-k fallback; each part logs the shapes it launched the kernels at.
+     11b's index and the plane are kept for 12h;
+ 12. the ported measurement and tooling scripts (``scripts/torch_*.py``)
+     through their ``measure`` / ``run``, each part counted, its shapes
+     logged, within about 150 s, cut for the time limit: (a)
+     ``torch_bench_serving`` in both modes over 2^20 x 384 bf16, 64 clients
+     x 8 requests (cut from 256 x 40), batches 32, 128, 256: 64 sampled
+     answers of each run equal a direct single-query top-k (tie-aware,
+     1e-4), and the in-process batch function makes no host sync in steady
+     state; (b) ``torch_bench_serving_http`` on the card, 4,096 chunks (cut
+     from 10,000: the hash featurizer's host ingest took 8 s), 64 clients x
+     4 (cut from 256 x 20): every status 200, 32 sampled answers of each
+     hybrid wave equal ``store.hybrid_search`` (1e-4); (c)
+     ``torch_bench_ingest`` at 16,384 chunks (cut from 100,000): count and
+     BM25 documents equal n, the final hybrid answer equals phase 3's brute
+     force; (d) ``torch_bench_encoder`` at b256 s256, MiniLM-L6 and
+     bge-base: the kernel route's output within 2^-7 of the plain route's;
+     (e) ``torch_run_quality --encoder both`` at 100 training steps (cut
+     from 1,500): the hash section equal to a CPU run's, the loss falling;
+     (f) ``torch_exp_encoder --hash-only`` (equal to (e)'s ablations) and a
+     trained tag at 50 steps; (g) ``torch_ann_builder --kind ivfpq --nlist
+     1024`` in a subprocess on the card over a 2^18-row clustered export,
+     and one on the CPU (in the background from (d) to (i)) over a 2^15-row
+     one (cut from 2^18: that build took 325 s on the card's host), each
+     adopted by its serving index: recall@10 at least 0.6, and adopt
+     refuses after a compaction;
+     (h) ``torch_diag_cfg4_misses`` over 11b's plane and index, probe 1024,
+     C 320: the misses add up, strict@10 within 1/320 of 11b's; (i)
+     ``torch_bench_attention_refold`` at B 256, S 256, best of 2 x 8 steps
+     (cut from 3 x 16: an int8 layer takes 130 ms): the folded and int8
+     layers within the script's bars of the baseline; (j) ``bash
+     scripts/torch_smoke.sh`` (in the background from (d)): ``SMOKE
+     PASSED``.
 
 Phase 2 also holds both ADC kernels against their plain versions at the
 shapes of paths A and B, and times them with the codes in L2, just
@@ -164,7 +198,10 @@ fixture store's RETRIEVAL batch and hybrid queries, ``--beir``'s k=100,
 the benchmark service's ingest batches), at 10a's (config 3's 8.8M
 rows of 768), and at 11's (the f32 ground truth over a 2^20-row block, an
 8-shard scaling shard, the 4-bit ADC at m = 96 for one query over 256 to
-4096 blocks and for groups of 2 and 4).  The
+4096 blocks and for groups of 2 and 4), and at 12's (the serving buckets
+over 2^20 rows, the diagnostic's k=11 scan, the HTTP store's direct and
+micro-batched hybrid queries, bge-base's and the trained config's
+attention, the adopted snapshot's 8-bit ADC).  The
 last two lines are a JSON object listing the kernels and
 ``{"ok": true, "device": {...}}``.  Without CUDA, or without the rest of
 the repository beside it, the script exits non-zero and prints no result.
@@ -209,11 +246,11 @@ RERANK_TOP = 50
 # 7d: local files of about 4 KB in the corpus (cut from 16,384: 7d alone
 # took 502 s of the run at that size; from 8,192, whose host-bound ingest
 # took 97-230 s)
-SVC_FILES = 4096
+SVC_FILES = 2048
 # 7d's flat index, at which phase 2 holds fused_topk: the corpus's chunks
 # in a capacity of 2^15 rows
-SVC_ROWS = 20_425
-SVC_CAPACITY = 1 << 15
+SVC_ROWS = 10_220
+SVC_CAPACITY = 1 << 14
 SVC_UPLOADS = 16           # 7d: documents uploaded over HTTP
 CHAT_CLIENTS = 32          # 7e: concurrent chat clients
 CHAT_CALLS = 4             # 7e: chats a client
@@ -247,9 +284,9 @@ SHARD_GROW = 1 << 16       # rows added past the capacity (growth)
 SHARD_DOCS = 1024          # 9d's tail documents; 9e's encoded documents
 # phase 10, BASELINE configs 3 and 5 and the sweeps
 CFG3_ROWS = 8_802_304      # 10a: config 3's 8.8M rows of 768, tile-rounded
-STREAM_SECONDS = 20        # 10b, 10c: cut from the JAX scripts' 45 s
+STREAM_SECONDS = 10        # 10b, 10c: cut from the JAX scripts' 45 s
 CFG5_CAP = 1 << 23         # 10b: config 5's capacity and its live rows
-CFG5_LIVE = CFG5_CAP - CFG5_CAP // 64 + 10 * 1024    # after 10 batches
+CFG5_LIVE = CFG5_CAP - CFG5_CAP // 64 + 5 * 1024     # after 5 batches
 SWEEP_NLIST = 2048         # 10d: the IVF sweep over PATH_ROWS rows
 SWEEP_NPROBES = (4, 16, 64, 256, 2048)
 PQ_SWEEP_ROWS = 1 << 18    # 10d: the PQ sweeps
@@ -268,6 +305,34 @@ CFG4_RERANK = "1024:320,2048:320,4096:320,4096:640"
 CFG4_SHARDS = 4            # 11c: logical shards over the plane
 CFG4_BUDGETS = (1024, 2048, 4096)   # 11c: total probe budgets
 SCALING_ROWS = 1 << 20     # 11d: fixed total rows of the shard scaling
+# phase 12, the ported scripts on the card, cut for the time limit
+SERVE_CLIENTS = 64         # 12a: cut from 256 clients x 40 requests
+SERVE_PER_CLIENT = 8
+SERVE_BATCHES = (32, 128, 256)
+SERVE_SAMPLE = 64          # 12a: answers held against a direct top-k
+HTTP_CHUNKS = 4096         # 12b: cut from 10,000 (its host ingest 8 s)
+HTTP_CAPACITY = 8192       # 12b: the hash store's capacity at HTTP_CHUNKS
+HTTP_CLIENTS = 64          # 12b: cut from 256 clients x 20 requests
+HTTP_PER_CLIENT = 4
+HTTP_SAMPLE = 32
+INGEST_N = 16_384          # 12c: cut from 100,000 chunks
+INGEST_CAPACITY = 32_768   # 12c: the index after its last write bucket
+INGEST_BATCH = 2048
+ENC_BATCH, ENC_SEQ, ENC_STEPS = 256, 256, 8          # 12d
+ENC_MODELS = ("minilm", "bge-base")
+QUALITY_STEPS = 100        # 12e: cut from 1,500 training steps
+EXP_STEPS = 50             # 12f: cut from 1,500
+ANN_ROWS = 1 << 18         # 12g: the corpus the card's build takes
+ANN_CPU_ROWS = 1 << 15     # 12g: the CPU build's, cut from 2^18 (325 s)
+ANN_NLIST = 1024
+#: 12g: (G, S) of the 8-bit ADC at its snapshots (m 48, 64 cells probed of
+#: one to four blocks of 512; groups of up to 4 queries within 131,072
+#: candidates, one query for the warm-up), held in phase 2
+ANN_ADC_SHAPES = ((1, 32768), (4, 131072), (1, 65536), (2, 131072),
+                  (1, 98304), (1, 131072))
+DIAG_PROBE, DIAG_RERANK = 1024, 320                  # 12h
+REFOLD_B, REFOLD_S = 256, 256                        # 12i
+REFOLD_STEPS, REFOLD_TRIALS = 8, 2   # 12i: cut from 16 x 3 (int8 130 ms)
 #: where the service phase runs: the card (the CPU only in a rehearsal of
 #: the phase at small sizes)
 DEV = "cuda"
@@ -276,6 +341,7 @@ SERVICE_TMP = os.path.join(ROOT, ".chip_tmp", "service")
 TRAIN_TMP = os.path.join(ROOT, ".chip_tmp", "train")
 SHARD_TMP = os.path.join(ROOT, ".chip_tmp", "shards")
 CFG4_TMP = os.path.join(ROOT, ".chip_tmp", "config4")
+SCRIPTS_TMP = os.path.join(ROOT, ".chip_tmp", "scripts")
 
 
 class SmokeFailure(RuntimeError):
@@ -3822,6 +3888,9 @@ def config5_vector(results):
     check(streamed and len(idx) == n_pre + 1024 * len(streamed)
           and payload["corpus_rows"] == len(idx),
           f"10b: {len(idx)} rows after {len(streamed)} streamed batches")
+    check(len(streamed) in (STREAM_SECONDS // 2, STREAM_SECONDS // 2 + 1),
+          f"10b: {len(streamed)} streamed batches, a read-back shape phase "
+          f"2 does not hold")
     # an acknowledged write is read back: one row of every batch, at rank 1
     want = [row for row, _v in streamed]
     reads = torch.stack([v for _r, v in streamed])
@@ -4132,7 +4201,7 @@ def config4_single(results, path):
                rerank_score_max_abs_err=err, shapes=shapes.as_dict(),
                n_code_blocks=int(idx.code_blocks.shape[0]),
                max_bpc=int(idx.cell_blocks.shape[1]))
-    del state, idx, store
+    del state, store
     torch.cuda.empty_cache()
     results["config4"]["single"] = out
     log("  11b: " + json.dumps({k: out[k] for k in (
@@ -4140,7 +4209,7 @@ def config4_single(results, path):
         "seconds", "peak_gib", "rerank_score_max_abs_err", "n_code_blocks",
         "max_bpc")}))
     log("  11b shapes: " + json.dumps(out["shapes"]))
-    return parts
+    return parts, idx
 
 
 def config4_sharded(results, path):
@@ -4241,7 +4310,7 @@ def shard_scaling(results):
 
 def config4(results):
     """Phase 11, parts 11a-11d; each of 11b-11d runs with the counts set to
-    0 just before it.  → launches by part."""
+    0 just before it.  → (launches by part, 11b's index, kept for 12h)."""
     import gc
 
     import torch
@@ -4250,10 +4319,498 @@ def config4(results):
     torch.cuda.empty_cache()
     results["config4"] = {}
     path = config4_fill(results)
-    parts = config4_single(results, path)
+    parts, index = config4_single(results, path)
     parts.update(config4_sharded(results, path))
-    os.remove(path)
     parts.update(shard_scaling(results))
+    return parts, index
+
+
+# ----------------------------------------------------------------- phase 12
+def scripts_serving(results):
+    """12a: ``torch_bench_serving.measure`` in both modes over 2^20 x 384
+    bf16 rows; SERVE_SAMPLE sampled answers of every run against a direct
+    single-query top-k (tie-aware, 1e-4); the in-process batch function
+    makes no host sync."""
+    import numpy as np
+    import torch
+
+    from archi_tpu_torch.engine.topk import topk_scores
+    from scripts import torch_bench_serving as serving
+
+    out, parts = {}, {}
+    for mode, in_process in (("dispatch", False), ("in_process", True)):
+        shapes = KernelShapes()
+        (payload, state), part, secs, peak = counted(
+            f"scripts_serving_{mode}", ("fused_topk",),
+            lambda: serving.measure(
+                clients=SERVE_CLIENTS, per_client=SERVE_PER_CLIENT,
+                batches=SERVE_BATCHES, in_process=in_process,
+                rows=serving.N,
+                sample=SERVE_SAMPLE, device=DEV,
+                log=lambda m: log("    " + m)),
+            shapes=shapes)
+        parts.update(part)
+        corpus, queries = state["corpus"], state["queries"]
+        n = corpus.shape[0]
+        check(n == serving.N and corpus.dtype == torch.bfloat16,
+              f"12a: corpus {tuple(corpus.shape)} {corpus.dtype}")
+        bias = torch.zeros((n,), dtype=torch.float32, device=DEV)
+        for (_m, mbs), got in state["answers"].items():
+            check(len(got) == SERVE_SAMPLE,
+                  f"12a {mode} {mbs}: {len(got)} sampled answers")
+            for gi, (vals, rows) in got.items():
+                wv, wr = topk_scores(
+                    torch.as_tensor(queries[gi][None], device=DEV), corpus,
+                    bias, n, k=serving.K)
+                check(same_rows(np.asarray(vals)[None],
+                                np.asarray(rows)[None], wv.cpu().numpy(),
+                                wr.cpu().numpy(), tol=1e-4),
+                      f"12a {mode} {mbs}: request {gi} differs from a "
+                      f"direct single-query top-k")
+        if in_process:
+            syncs = [e["host_syncs_per_batch"] for e in payload["sweep"]
+                     if e.get("mode") == "in_process_async"]
+            check(syncs and not any(syncs),
+                  f"12a: the in-process batch function synchronised {syncs}")
+        out[mode] = dict(payload, seconds=secs, peak_gib=peak,
+                         shapes=shapes.as_dict())
+        log(f"  12a {mode}: " + json.dumps(
+            {k: payload[k] for k in payload if k != "device"}))
+        log(f"  12a {mode} shapes: " + json.dumps(out[mode]["shapes"]))
+        del state, corpus
+        torch.cuda.empty_cache()
+    results["scripts"]["serving"] = out
+    return parts
+
+
+def scripts_http(results):
+    """12b: ``torch_bench_serving_http.measure`` on the card; every status
+    200 (the script raises otherwise); HTTP_SAMPLE answers of each hybrid
+    wave equal ``store.hybrid_search`` (tie-aware, 1e-4)."""
+    import torch
+
+    from scripts import torch_bench_serving_http as http_bench
+
+    shapes = KernelShapes()
+    (payload, state), parts, secs, peak = counted(
+        "scripts_http", ("fused_topk",),
+        lambda: http_bench.measure(
+            os.path.join(SCRIPTS_TMP, "serving_http.json"),
+            clients=HTTP_CLIENTS, per_client=HTTP_PER_CLIENT,
+            n_chunks=HTTP_CHUNKS, sample=HTTP_SAMPLE,
+            data_path=os.path.join(SCRIPTS_TMP, "http_data"), device=DEV,
+            log=lambda m: log("    " + m)),
+        shapes=shapes)
+    store = state["store"]
+    index = store.index
+    check((index.capacity, index.n_rows) == (HTTP_CAPACITY, HTTP_CHUNKS),
+          f"12b: index {index.n_rows} rows in {index.capacity}, not the "
+          f"shape at which phase 2 holds fused_topk")
+    for wave, got in state["answers"].items():
+        check(len(got) == HTTP_SAMPLE, f"12b {wave}: {len(got)} answers")
+        for qi, body in got.items():
+            want = store.hybrid_search(state["queries"][qi], k=5)
+            keys = {src: i for i, src in enumerate(
+                {h["metadata"]["source"] for h in body}
+                | {d.metadata["source"] for d, _s in want})}
+            check(len(body) == len(want) and same_rows(
+                [[h["score"] for h in body]],
+                [[keys[h["metadata"]["source"]] for h in body]],
+                [[sc for _d, sc in want]],
+                [[keys[d.metadata["source"]] for d, _s in want]], tol=1e-4),
+                f"12b {wave}: request {qi} differs from hybrid_search")
+    out = dict(payload, seconds=secs, peak_gib=peak, shapes=shapes.as_dict())
+    del state, store, index
+    torch.cuda.empty_cache()
+    results["scripts"]["http"] = out
+    log("  12b: " + json.dumps({k: out[k] for k in (
+        "noop_http", "hybrid_end_to_end", "hybrid_micro_batched",
+        "seconds")}))
+    log("  12b shapes: " + json.dumps(out["shapes"]))
+    return parts
+
+
+def scripts_ingest(results):
+    """12c: ``torch_bench_ingest.measure`` at INGEST_N chunks: the count and
+    the BM25 documents equal n; the final hybrid answer equals phase 3's
+    brute force."""
+    import torch
+
+    from scripts import torch_bench_ingest as ingest
+
+    shapes = KernelShapes()
+    (payload, state), parts, secs, peak = counted(
+        "scripts_ingest", ("fused_topk", "encoder_attention"),
+        lambda: ingest.measure(INGEST_N, INGEST_BATCH, device=DEV,
+                               log=lambda m: log("    " + m)),
+        shapes=shapes)
+    store = state["store"]
+    check(payload["index_rows"] == INGEST_N == payload["bm25_docs"],
+          f"12c: {payload['index_rows']} rows, {payload['bm25_docs']} BM25 "
+          f"documents, not {INGEST_N}")
+    check(store.index.capacity == INGEST_CAPACITY,
+          f"12c: capacity {store.index.capacity}, not the shape at which "
+          f"phase 2 holds fused_topk")
+    want = brute_force_hybrid(store, ["term1 term2"], 5)[0]
+    check(same_ranking(state["hits"], want),
+          "12c: the final hybrid answer differs from brute force")
+    out = dict(payload, seconds=secs, peak_gib=peak, shapes=shapes.as_dict())
+    del state, store
+    torch.cuda.empty_cache()
+    results["scripts"]["ingest"] = out
+    log("  12c: " + json.dumps(out))
+    return parts
+
+
+def scripts_encoder(results):
+    """12d: ``torch_bench_encoder.measure`` at ENC_BATCH x ENC_SEQ for each
+    of ENC_MODELS; the kernel route's pooled output equals the plain
+    route's on the same ids within a bf16 step (2^-7)."""
+    import torch
+
+    from archi_tpu_torch.models.bert import encode
+    from scripts import torch_bench_encoder as enc
+
+    out, parts = {}, {}
+    for model in ENC_MODELS:
+        shapes = KernelShapes()
+        (payload, state), part, secs, peak = counted(
+            f"scripts_encoder_{model}", ("encoder_attention",),
+            lambda: enc.measure(ENC_BATCH, ENC_SEQ, ENC_STEPS, model,
+                                device=DEV, log=lambda m: log("    " + m)),
+            shapes=shapes)
+        parts.update(part)
+        chain, m = state["chain"], state["model"]
+        ids = chain.ids_from(torch.ones((ENC_BATCH, m.config.hidden_size),
+                                        device=DEV))
+        got = encode(m, ids, chain.mask, attention_impl="kernel")
+        want = encode(m, ids, chain.mask, attention_impl="plain")
+        err = float((got - want).abs().max())
+        check(err <= 2.0 ** -7,
+              f"12d {model}: kernel and plain routes differ by {err:.3g}")
+        out[model] = dict(payload, seconds=secs, peak_gib=peak,
+                          kernel_vs_plain_max_abs=err,
+                          shapes=shapes.as_dict())
+        del state, chain, m, got, want
+        torch.cuda.empty_cache()
+        log(f"  12d {model}: " + json.dumps(out[model]))
+    results["scripts"]["encoder"] = out
+    return parts
+
+
+def scripts_quality(results):
+    """12e: ``torch_run_quality.run --encoder both`` at QUALITY_STEPS
+    training steps: the hash section's totals and ablations equal a CPU
+    run's, the training loss falls.  12f: ``torch_exp_encoder.run``
+    --hash-only (equal to 12e's ablations) and one trained tag at
+    EXP_STEPS."""
+    from archi_tpu_torch.models.hashed_embedder import HashedNgramEmbedder
+    from scripts import torch_exp_encoder as exp
+    from scripts import torch_run_quality as quality
+
+    out, losses = {}, []
+    shapes = KernelShapes()
+    payload, parts, secs, peak = counted(
+        "scripts_quality", ("fused_topk", "encoder_attention"),
+        lambda: quality.run(
+            os.path.join(SCRIPTS_TMP, "quality.json"), encoder="both",
+            model_dir=os.path.join(SCRIPTS_TMP, "quality_model"),
+            steps=QUALITY_STEPS,
+            out_dir=os.path.join(SCRIPTS_TMP, "quality_results"),
+            device=DEV, log=lambda _m: None, losses=losses),
+        shapes=shapes)
+    cpu = quality.run_section(
+        HashedNgramEmbedder(), "cpu", device="cpu",
+        out_dir=os.path.join(SCRIPTS_TMP, "quality_results_cpu"))
+    keys = ("source_accuracy", "relative_source_accuracy", "recall_at_10",
+            "retriever_ablation", "hard_query_ablation",
+            "synonym_query_ablation", "n_questions", "chunks")
+    diff = {k: (payload["hash"][k], cpu[k]) for k in keys
+            if payload["hash"][k] != cpu[k]}
+    check(not diff, f"12e: the hash section on the card differs from the "
+          f"CPU run: {diff}")
+    check(len(losses) == QUALITY_STEPS and
+          sum(losses[-10:]) < sum(losses[:10]),
+          f"12e: the loss did not fall ({losses[:3]} ... {losses[-3:]})")
+    out["quality"] = dict(payload, seconds=secs, peak_gib=peak,
+                          loss_first=losses[0], loss_last=losses[-1],
+                          shapes=shapes.as_dict())
+    log("  12e: " + json.dumps({k: out["quality"][k] for k in (
+        "source_accuracy", "recall_at_10", "seconds", "loss_first",
+        "loss_last")}))
+    log("  12e hash: " + json.dumps(payload["hash"]))
+    log("  12e trained: " + json.dumps(payload["trained"]))
+    log("  12e shapes: " + json.dumps(out["quality"]["shapes"]))
+
+    shapes = KernelShapes()
+    exp_log = os.path.join(SCRIPTS_TMP, "enc_experiments.jsonl")
+    (hash_res, trained), part, secs, peak = counted(
+        "scripts_exp_encoder", ("fused_topk", "encoder_attention"),
+        lambda: (exp.run(hash_only=True, log_path=exp_log, device=DEV,
+                         log=lambda _m: None),
+                 exp.run("chip", train_kw={
+                     "batch": 128, "seq_len": 96, "seed": 0,
+                     "steps": EXP_STEPS}, log_path=exp_log,
+                     model_dir=os.path.join(SCRIPTS_TMP, "exp_model"),
+                     device=DEV, log=lambda _m: None)),
+        shapes=shapes)
+    parts.update(part)
+    h = payload["hash"]
+    for family, section in (("main", "retriever_ablation"),
+                            ("hard", "hard_query_ablation"),
+                            ("synonym", "synonym_query_ablation")):
+        for mode in ("hybrid", "semantic_only"):
+            check(hash_res[family][mode] == h[section][f"{mode}_hit@5"],
+                  f"12f: --hash-only {family} {mode} "
+                  f"{hash_res[family][mode]} differs from 12e's "
+                  f"{h[section][f'{mode}_hit@5']}")
+    out["exp_encoder"] = {"hash": hash_res, "trained": trained,
+                          "seconds": secs, "peak_gib": peak,
+                          "shapes": shapes.as_dict()}
+    log("  12f: " + json.dumps(out["exp_encoder"]))
+    results["scripts"].update(out)
+    return parts
+
+
+def start(cmd, log_path):
+    """A background process of this run, its output to ``log_path``."""
+    with open(log_path, "w") as out:
+        return subprocess.Popen(cmd, cwd=ROOT, stdout=out,
+                                stderr=subprocess.STDOUT,
+                                env=dict(os.environ, PYTHON=sys.executable))
+
+
+def finish(proc, log_path, part, timeout) -> str:
+    """Wait for a background process; its output, or the run fails."""
+    try:
+        proc.wait(timeout=timeout)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        proc.wait()
+    with open(log_path) as f:
+        text = f.read()
+    check(proc.returncode == 0,
+          f"{part}: exit {proc.returncode}: {text[-2000:]}")
+    return text
+
+
+class AnnAdoption:
+    """12g: an ``AnnFlatIndex(snapshot_kind="ivfpq")`` over ``rows``
+    clustered rows (phase 5's generator), its corpus exported for
+    ``scripts/torch_ann_builder.py --device <device>`` in a subprocess, the
+    snapshot adopted and searched: recall@10 against the exact scan at
+    least 0.6 (path A's bar), every ADC launch at a shape phase 2 holds;
+    after a compaction, adopt refuses."""
+
+    def __init__(self, rows: int, device: str, seed: int):
+        import torch
+
+        from archi_tpu_torch.engine.ann_index import AnnFlatIndex
+
+        self.rows, self.device = rows, device
+        self.idx = AnnFlatIndex(384, nlist=ANN_NLIST, snapshot_kind="ivfpq",
+                                min_snapshot_rows=1 << 40,
+                                async_refresh=False, dtype=torch.bfloat16,
+                                device=DEV)
+        gen = ClusteredRows(rows, seed)
+        step = min(rows, 1 << 16)
+        for s in range(0, rows, step):
+            self.idx.add(gen.rows(step), ids=list(range(s, s + step)))
+        self.q = gen.rows(32)
+        self.want = exact_scan(self.idx.emb, rows,
+                               self.q.bfloat16().float())[1]
+        self.prefix = os.path.join(SCRIPTS_TMP, f"ann_{device}.npz")
+        self.idx.export_corpus(self.prefix)
+
+    def command(self):
+        return [sys.executable, os.path.join(ROOT, "scripts",
+                                             "torch_ann_builder.py"),
+                "--corpus", self.prefix, "--kind", "ivfpq", "--nlist",
+                str(ANN_NLIST), "--device", self.device]
+
+    def adopt(self, results, build_log):
+        import numpy as np
+
+        shapes = KernelShapes()
+
+        def run():
+            ok = self.idx.adopt_snapshot(self.prefix)
+            _ids, _vals, rows = self.idx.search(self.q, k=10)
+            return ok, rows
+
+        (ok, rows), parts, secs, peak = counted(
+            f"scripts_ann_{self.device}", ("adc_scores",), run,
+            shapes=shapes)
+        check(ok and self.idx._n_snap == self.rows,
+              f"12g: the {self.device} snapshot was not adopted")
+        rec = recall_at_10(np.asarray(rows.cpu() if hasattr(rows, "cpu")
+                                      else rows), self.want)
+        check(rec >= 0.6, f"12g {self.device}: recall@10 {rec:.3f} < 0.6")
+        unheld = [key for key in shapes.adc
+                  if (key[0], key[1], key[2], key[3]) not in
+                  {("adc_scores", 48, g, s_) for g, s_ in ANN_ADC_SHAPES}]
+        check(not unheld, f"12g {self.device}: ADC shapes {unheld} are not "
+              f"held in phase 2")
+        built = re.search(r"snapshot built in ([0-9.]+)s", build_log)
+        out = {"rows": self.rows, "recall_at_10": rec,
+               "build_s": float(built.group(1)) if built else None,
+               "adopt_search_s": secs, "peak_gib": peak,
+               "shapes": shapes.as_dict()}
+        results["scripts"].setdefault("ann_builder", {})[self.device] = out
+        log(f"  12g {self.device}: " + json.dumps(out))
+        return parts
+
+    def refuse_after_compaction(self, results):
+        self.idx.delete([0, 1])
+        self.idx.compact()
+        check(not self.idx.adopt_snapshot(self.prefix),
+              "12g: adopt took a snapshot exported before a compaction")
+        results["scripts"]["ann_builder"]["refused_after_compaction"] = True
+
+
+def scripts_diag(results, index):
+    """12h: ``torch_diag_cfg4_misses.measure`` over 11b's plane and index
+    (held from 11b: its save and reload would cost about a minute), probe
+    DIAG_PROBE, C DIAG_RERANK: the misses split into the two kinds;
+    strict@10 within 1/320 of 11b's strict recall at the same budget (11b's
+    ground truth is f32, this one bf16, as in the JAX script)."""
+    import torch
+
+    from scripts import torch_diag_cfg4_misses as diag
+
+    n = CFG4_BLOCKS * CFG4_BLOCK_ROWS
+    shapes = KernelShapes()
+    (payload, _state), parts, secs, peak = counted(
+        "scripts_diag", ("fused_topk", "adc_scores_lut16"),
+        lambda: diag.measure(
+            os.path.join(SCRIPTS_TMP, "miss_diag.json"), rows=n,
+            index=index, store_path=os.path.join(CFG4_TMP, "config4.bf16"),
+            probe=DIAG_PROBE, rerank_c=DIAG_RERANK,
+            block_rows=CFG4_BLOCK_ROWS, device=DEV,
+            log=lambda m: log("    " + m)),
+        shapes=shapes)
+    check(payload["n_missed"] == payload["n_missed_in_candidate_set"]
+          + payload["n_missed_geometry"], "12h: the misses do not add up")
+    single = [e for e in results["config4"]["single"]["rerank_sweep"]
+              if (e["nprobe_blocks"], e["rerank_c"]) == (DIAG_PROBE,
+                                                         DIAG_RERANK)]
+    check(len(single) == 1, f"12h: 11b ran no ({DIAG_PROBE}, {DIAG_RERANK})")
+    gap = payload["strict_at_10"] - single[0]["recall_strict_at_10"]
+    check(abs(gap) <= 1 / 320 + 1e-9,
+          f"12h: strict@10 {payload['strict_at_10']} against 11b's "
+          f"{single[0]['recall_strict_at_10']}")
+    out = dict(payload, seconds=secs, peak_gib=peak, gap_to_11b=gap,
+               shapes=shapes.as_dict())
+    torch.cuda.empty_cache()
+    results["scripts"]["diag"] = out
+    log("  12h: " + json.dumps({k: out[k] for k in (
+        "strict_at_10", "n_missed", "n_missed_in_candidate_set",
+        "n_missed_geometry", "gt_boundary_gap_median", "gap_to_11b",
+        "seconds")}))
+    log("  12h shapes: " + json.dumps(out["shapes"]))
+    return parts
+
+
+def scripts_refold(results):
+    """12i: ``torch_bench_attention_refold.measure`` at B REFOLD_B, S
+    REFOLD_S: the folded and the int8 layers against the baseline within
+    the script's bf16 and int8 bars (relative, all elements)."""
+    import torch
+
+    from scripts import torch_bench_attention_refold as refold
+
+    (payload, state), parts, secs, peak = counted(
+        "scripts_refold", (),
+        lambda: refold.measure(REFOLD_B, REFOLD_S, steps=REFOLD_STEPS,
+                               trials=REFOLD_TRIALS, device=DEV,
+                               log=lambda _m: None))
+    outs = state["outputs"]
+    errs = {name: refold.rel_err(outs[name], outs["baseline_xla"])
+            for name in ("folded_bigK", "int8_dots")}
+    check(errs["folded_bigK"] <= refold.BF16_TOL,
+          f"12i: the folded layer is {errs['folded_bigK']:.3g} off")
+    check(errs["int8_dots"] <= refold.INT8_TOL,
+          f"12i: the int8 layer is {errs['int8_dots']:.3g} off")
+    del state, outs
+    torch.cuda.empty_cache()
+    out = dict(payload, seconds=secs, peak_gib=peak, rel_err=errs)
+    results["scripts"]["refold"] = out
+    log("  12i: " + json.dumps(out))
+    return parts
+
+
+def scripts_phase(results, cfg4_index):
+    """Phase 12, parts 12a-12j; each of 12a-12i runs with the counts set to
+    0 just before it.  12g's CPU build and 12j (the smoke script's
+    services, other processes) run in the background from 12d (the host-
+    bound timings of 12a-12c run alone) to their ends.  → launches by
+    part."""
+    import gc
+
+    import torch
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    os.makedirs(SCRIPTS_TMP, exist_ok=True)
+    results["scripts"] = {"curl": shutil.which("curl")}
+    seconds = {}
+    t0 = [time.perf_counter()]
+
+    def lap(part):
+        now = time.perf_counter()
+        seconds[part], t0[0] = now - t0[0], now
+
+    parts = scripts_serving(results)
+    lap("12a")
+    parts.update(scripts_http(results))
+    lap("12b")
+    parts.update(scripts_ingest(results))
+    lap("12c")
+    logs = {k: os.path.join(SCRIPTS_TMP, f"{k}.log")
+            for k in ("ann_cpu", "ann_cuda", "smoke")}
+    ann_cpu = AnnAdoption(ANN_CPU_ROWS, "cpu", SEED + 82)
+    background = [start(ann_cpu.command(), logs["ann_cpu"]),
+                  start(["bash", os.path.join(ROOT, "scripts",
+                                              "torch_smoke.sh")],
+                        logs["smoke"])]
+    cpu_build, smoke = background
+    try:
+        parts.update(scripts_encoder(results))
+        lap("12d")
+        parts.update(scripts_quality(results))
+        lap("12ef")
+        ann = AnnAdoption(ANN_ROWS, "cuda", SEED + 81)
+        text = finish(start(ann.command(), logs["ann_cuda"]),
+                      logs["ann_cuda"], "12g cuda build", 600)
+        parts.update(ann.adopt(results, text))
+        lap("12g_cuda")
+        parts.update(scripts_diag(results, cfg4_index))
+        lap("12h")
+        parts.update(scripts_refold(results))
+        lap("12i")
+        text = finish(cpu_build, logs["ann_cpu"], "12g cpu build", 600)
+        parts.update(ann_cpu.adopt(results, text))
+        ann.refuse_after_compaction(results)
+        lap("12g_cpu")
+        text = finish(smoke, logs["smoke"], "12j", 600)
+        check("SMOKE PASSED" in text, f"12j: {text[-2000:]}")
+        results["scripts"]["smoke"] = text.strip().splitlines()[-3:]
+        lap("12j")
+        log("  12j: " + " | ".join(results["scripts"]["smoke"]))
+    finally:
+        # SIGTERM first: the smoke script's trap deletes its deployment
+        for proc in background:
+            if proc.poll() is None:
+                proc.terminate()
+                try:
+                    proc.wait(timeout=30)
+                except subprocess.TimeoutExpired:
+                    proc.kill()
+                    proc.wait()
+    del ann, ann_cpu
+    torch.cuda.empty_cache()
+    results["scripts"]["part_seconds"] = seconds
+    log("  phase 12 parts (s): " + json.dumps(seconds))
     return parts
 
 
@@ -4268,9 +4825,13 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     t_start = time.perf_counter()
+
+    def phase_log(text):
+        log(f"{text} [{time.perf_counter() - t_start:.0f} s]")
+
     card = card_line()
     log(card)
-    log("phase 1: build")
+    phase_log("phase 1: build")
     from archi_tpu_torch import native
 
     t0 = time.perf_counter()
@@ -4290,7 +4851,7 @@ def main() -> int:
             log(f"    {kernel}: {use}")
     log(f"  built {_build.sources()} in {secs:.1f} s")
 
-    log("phase 2: kernels against their plain versions")
+    phase_log("phase 2: kernels against their plain versions")
     results: dict = {"card": card, "build_s": secs, "ptxas": ptxas}
     bf16 = torch.bfloat16
     topk = [
@@ -4364,13 +4925,15 @@ def main() -> int:
         topk_case("topk_b32_config3_d768_bf16", 32, CFG3_ROWS, CFG3_ROWS,
                   bf16, False, d=768, timed=True),
         # 10b: config 5's 2^23-row index after the stream (2^23 - 2^17
-        # prepopulated rows and 10 batches of 1024), its B=32 queries and
-        # the read-back of one row a batch; 10d: the sweep's ground truth,
-        # 64 queries over 2^22 rows
+        # prepopulated rows and 5 batches of 1024, one every 2 s for 10 s:
+        # 5 or 6), its B=32 queries and the read-back of one row a batch;
+        # 10d: the sweep's ground truth, 64 queries over 2^22 rows
         topk_case("topk_b32_config5_bf16", 32, CFG5_CAP, CFG5_LIVE, bf16,
                   False, timed=True),
-        topk_case("topk_b10_config5_readback_bf16", 10, CFG5_CAP, CFG5_LIVE,
+        topk_case("topk_b5_config5_readback_bf16", 5, CFG5_CAP, CFG5_LIVE,
                   bf16, False, timed=True),
+        topk_case("topk_b6_config5_readback_bf16", 6, CFG5_CAP, CFG5_LIVE,
+                  bf16, False),
         topk_case("topk_b64_sweep_bf16", 64, PATH_ROWS, PATH_ROWS, bf16,
                   False, timed=True),
         # 11b / 11c: config 4's exact ground truth, B=32 over one generator
@@ -4385,6 +4948,27 @@ def main() -> int:
                   bf16, False),
         topk_case("topk_b32_scaling_shard2_bf16", 32, 1 << 19, 1 << 19,
                   bf16, False),
+        # 12a: torch_bench_serving's buckets, B = 1 ... 256 over 2^20 x 384
+        # bf16, shared zero bias (32 and 256: the 9a shard above); 12h: the
+        # diagnostic's ground truth, B=32 at k=11 over one 2^20-row block
+        *[topk_case(f"topk_b{b}_serving_bf16", b, 1 << 20, 1 << 20, bf16,
+                    False, timed=True) for b in (1, 2, 4, 8, 16, 64, 128)],
+        topk_case("topk_b32_k11_diag_bf16", 32, 1 << 20, 1 << 20, bf16,
+                  False, k=11, timed=True),
+        # 12b: the hash store's 10,000 rows in 16,384, k=5: a direct hybrid
+        # query (shared bias) and the micro-batched ones (per-query bias,
+        # buckets of 1 ... 64); 12c: the ingest's 16,384 rows, one query
+        topk_case("topk_b1_k5_http_bf16", 1, HTTP_CAPACITY, HTTP_CHUNKS, bf16,
+                  False, k=5, timed=True),
+        *[topk_case(f"topk_b{b}_k5_perquery_http_bf16", b, HTTP_CAPACITY,
+                    HTTP_CHUNKS, bf16, True, k=5, timed=b in (1, 64))
+          for b in (1, 2, 4, 8, 16, 32, 64)],
+        topk_case("topk_b1_k5_ingest_bf16", 1, INGEST_CAPACITY, INGEST_N,
+                  bf16, False, k=5),
+        # 12g: the CPU-built snapshot's store, 2^15 rows in 2^16: its empty
+        # fresh tail's scan
+        topk_case("topk_b32_ann_tail_bf16", 32, ANN_CPU_ROWS, 0, bf16,
+                  False),
     ]
     attn = [
         # ingest (256 chunks in the 128 bucket) and queries (the 64 bucket,
@@ -4425,6 +5009,17 @@ def main() -> int:
                        timed=True),
         attention_case("attn_b128_s64_bf16", 128, 64, torch.bfloat16,
                        timed=True),
+        # 12d: bge-base at b256 s256 (MiniLM's: attn_b256_s256 above);
+        # 12e / 12f: the trained small config (hidden 256, 4 heads of 64):
+        # training batches (128 x 96, under autograd), the fixture's ingest
+        # and the queries
+        attention_case("attn_b256_s256_hd64_bf16", 256, 256, torch.bfloat16,
+                       nh=12, hd=64, timed=True),
+        *[attention_case(f"attn_b{b}_s{s_}_nh4_hd64_bf16", b, s_,
+                         torch.bfloat16, nh=4, hd=64,
+                         timed=(b, s_) in ((128, 96), (256, 128)))
+          for b, s_ in ((8, 64), (32, 128), (128, 64), (128, 96), (256, 64),
+                        (256, 128))],
     ]
     adc8 = [
         # path A: cell probing, one query a group (G=1) over 64 cells of up
@@ -4436,6 +5031,10 @@ def main() -> int:
         adc_case("adc8_g256_m48_s65536", 48, 256, 1 << 16, False),
         adc_case("adc8_g32_m96_s100003_k100", 96, 32, 100_003, False,
                  ksub=100),
+        # 12g: the adopted snapshots' cell probes
+        *[adc_case(f"adc8_g{g}_m48_s{s_}_ann", 48, g, s_, False,
+                   timed=(g, s_) == (2, 131072))
+          for g, s_ in ANN_ADC_SHAPES],
     ]
     adc4 = [
         # path B: block probing, groups of 2 over 2 x 128 blocks of 512
@@ -4460,26 +5059,29 @@ def main() -> int:
     results["adc_scores"], results["adc_scores_lut16"] = adc8, adc4
     torch.cuda.empty_cache()
 
-    log("phase 3: main path (MiniLM-L6 TorchEmbedder -> TorchVectorStore)")
+    phase_log("phase 3: main path (MiniLM-L6 TorchEmbedder -> "
+              "TorchVectorStore)")
     launches, store, emb, hybrid_q, docs, vocab = main_path(results)
 
-    log("phase 4: timings")
+    phase_log("phase 4: timings")
     timings(results, store, emb, hybrid_q, docs)
-    log("phase 7 inputs: phase 3's encoder and store written to disk")
+    phase_log("phase 7 inputs: phase 3's encoder and store written to "
+              "disk")
     write_service_checkpoint(results, store, emb)
     del store
     torch.cuda.empty_cache()
 
-    log("phase 5: path A, type: ivfpq (AnnFlatIndex over TorchVectorStore)")
+    phase_log("phase 5: path A, type: ivfpq (AnnFlatIndex over "
+              "TorchVectorStore)")
     launches_a, store_a, corpus, _q, _exact = path_a(results, emb, docs, vocab)
 
-    log("phase 6: path B, the XL tier's packed 4-bit snapshot")
+    phase_log("phase 6: path B, the XL tier's packed 4-bit snapshot")
     launches_b = path_b(results, store_a.index, corpus)
     del store_a, corpus, _q, _exact
     torch.cuda.empty_cache()
 
-    log("phase 7: the service layer (bootstrap, micro-batching, hot tail, "
-        "XL, rerank)")
+    phase_log("phase 7: the service layer (bootstrap, micro-batching, "
+              "hot tail, XL, rerank)")
     try:
         parts = service_flat(results, docs, vocab)
         parts.update(service_hot_tail(results, docs, vocab))
@@ -4489,14 +5091,14 @@ def main() -> int:
         shutil.rmtree(SERVICE_TMP, ignore_errors=True)
     torch.cuda.empty_cache()
 
-    log("phase 8: the trainer at MiniLM-L6 width, its export served")
+    phase_log("phase 8: the trainer at MiniLM-L6 width, its export served")
     try:
         parts.update(training(results, docs))
     finally:
         shutil.rmtree(TRAIN_TMP, ignore_errors=True)
     torch.cuda.empty_cache()
 
-    log(f"phase 9: the multi-device tier, {SHARDS} shards on the card")
+    phase_log(f"phase 9: the multi-device tier, {SHARDS} shards on the card")
     t0 = time.perf_counter()
     try:
         parts.update(multi_device(results, emb, docs, vocab))
@@ -4505,20 +5107,34 @@ def main() -> int:
     results["shards"]["seconds"] = time.perf_counter() - t0
     log(f"  phase 9 took {results['shards']['seconds']:.1f} s ({card})")
 
-    log("phase 10: BASELINE configs 3 and 5, the sweeps, synth_corpus")
+    phase_log("phase 10: BASELINE configs 3 and 5, the sweeps, "
+              "synth_corpus")
     t0 = time.perf_counter()
     parts.update(baseline_configs(results))
     results["baseline"]["seconds"] = time.perf_counter() - t0
     log(f"  phase 10 took {results['baseline']['seconds']:.1f} s ({card})")
 
-    log(f"phase 11: BASELINE config 4 on one card ({CFG4_BLOCKS} blocks)")
+    phase_log(f"phase 11: BASELINE config 4 on one card ({CFG4_BLOCKS} "
+              f"blocks)")
     t0 = time.perf_counter()
     try:
-        parts.update(config4(results))
+        parts4, cfg4_index = config4(results)
+        parts.update(parts4)
+        results["config4"]["seconds"] = time.perf_counter() - t0
+        log(f"  phase 11 took {results['config4']['seconds']:.1f} s "
+            f"({card})")
+        # 12h reads phase 11's plane and index
+        phase_log("phase 12: the ported scripts (scripts/torch_*.py) on "
+                  "the card")
+        t0 = time.perf_counter()
+        parts.update(scripts_phase(results, cfg4_index))
+        del cfg4_index
+        results["scripts"]["seconds"] = time.perf_counter() - t0
+        log(f"  phase 12 took {results['scripts']['seconds']:.1f} s "
+            f"({card})")
     finally:
         shutil.rmtree(CFG4_TMP, ignore_errors=True)
-    results["config4"]["seconds"] = time.perf_counter() - t0
-    log(f"  phase 11 took {results['config4']['seconds']:.1f} s ({card})")
+        shutil.rmtree(SCRIPTS_TMP, ignore_errors=True)
     # each path and part ran with the counts set to 0 just before it
     results["launches"] = {"main": launches, "path_a": launches_a,
                            "path_b": launches_b}

@@ -100,6 +100,11 @@ def test_importing_every_module_loads_no_jax():
     assert {"scripts.torch_fill_host_store", "scripts.torch_run_config4",
             "scripts.torch_run_config4_sharded",
             "scripts.torch_bench_shard_scaling"} <= set(mods)
+    # the measurement and tooling scripts
+    assert {f"scripts.torch_{m}" for m in (
+        "diag_cfg4_misses", "bench_serving", "bench_serving_http",
+        "bench_ingest", "bench_encoder", "run_quality", "ann_builder",
+        "exp_encoder", "bench_attention_refold")} <= set(mods)
     assert not [m for m in mods if _forbidden(m)]
 
 
@@ -421,6 +426,11 @@ def test_default_device_is_cuda_and_raises_without_it(no_cuda):
     from scripts import torch_run_config3 as cfg3
     from scripts import torch_run_config4 as cfg4
     from scripts import torch_run_config4_sharded as cfg4s
+    from scripts import (torch_ann_builder, torch_bench_attention_refold,
+                         torch_bench_encoder, torch_bench_ingest,
+                         torch_bench_serving, torch_bench_serving_http,
+                         torch_diag_cfg4_misses, torch_exp_encoder,
+                         torch_run_quality)
 
     x = np.eye(4, 16, dtype=np.float32)
     for make in (measure_relay_rtt, lambda: synthetic_corpus_device(64, 8),
@@ -433,6 +443,17 @@ def test_default_device_is_cuda_and_raises_without_it(no_cuda):
                  lambda: cfg4.run(rows=64, block_rows=64),
                  lambda: cfg4s.run(shards=1, block_rows=64),
                  lambda: scaling.measure(rows=64),
+                 lambda: torch_bench_serving.measure(rows=64),
+                 lambda: torch_bench_serving_http.measure(n_chunks=4),
+                 lambda: torch_bench_ingest.measure(4, 2),
+                 lambda: torch_bench_encoder.measure(1, 8, 1),
+                 lambda: torch_run_quality.run(None, encoder="hash"),
+                 lambda: torch_exp_encoder.run(hash_only=True,
+                                               log_path=None),
+                 lambda: torch_ann_builder.run("no_such_export"),
+                 lambda: torch_diag_cfg4_misses.measure(None, rows=64,
+                                                        block_rows=64),
+                 lambda: torch_bench_attention_refold.measure(2, 8),
                  default_device, lambda: FlatIndex(16), BM25Index,
                  lambda: TorchEmbedder(config=cfg),
                  lambda: TorchVectorStore(Emb()),
