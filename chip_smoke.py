@@ -52,9 +52,8 @@ Phases (each fails the run with a non-zero exit):
      tail, micro-batched hybrid and semantic queries, recall, exact scores
      and a save/load round trip; (d) the port's data-manager service over
      HTTP (``bin/service_data_manager.build_app``, flat bf16, micro-batching
-     at the defaults): 2,048 local files of about 4 KB (cut from 16,384,
-     then 8,192 and 4,096 for the time limit) ingested by its initial
-     ingestion (every file ``embedded``, the count equal to the corpus's
+     at the defaults): 4,096 local files of about 4 KB (cut from 16,384)
+     ingested by its initial ingestion (every file ``embedded``, the count equal to the corpus's
      chunks, the index at phase 2's top-k shape), 64 clients x 8 ``POST
      /api/query/hybrid`` through
      ``urllib``, each answer equal to the direct path, a restart that
@@ -117,8 +116,8 @@ Phases (each fails the run with a non-zero exit):
      made by ``synthetic_corpus_device``, self-recall 1.0, one B=32 batch
      equal to a chunked f32 exact scan (tie-aware, 1e-4); (b) config 5's
      phase A (``torch_bench_streaming_ingest.phase_vector``), 2^23 - 2^17
-     rows in a 2^23-row index, 1024-row batches every 2 s for 10 s (cut
-     from 45 s, then 20 s, for the time limit) under B=32 queries: at
+     rows in a 2^23-row index, 1024-row batches every 2 s for 20 s (cut
+     from 45 s) under B=32 queries: at
      least 10,000 rows/min, no growth,
      one row of every batch read back at rank 1; (c) its phase B at 2^20
      rows with 200,000 live BM25 documents: no full BM25 build during the
@@ -173,8 +172,9 @@ Phases (each fails the run with a non-zero exit):
      (f) ``torch_exp_encoder --hash-only`` (equal to (e)'s ablations) and a
      trained tag at 50 steps; (g) ``torch_ann_builder --kind ivfpq --nlist
      1024`` in a subprocess on the card over a 2^18-row clustered export,
-     and one on the CPU (in the background from (d) to (i)) over a 2^15-row
-     one (cut from 2^18: that build took 325 s on the card's host), each
+     and one on the CPU over a 2^15-row one (cut from 2^18: that build
+     took 325 s on the card's host), both in the background beside (e),
+     (f) and (h), each
      adopted by its serving index: recall@10 at least 0.6, and adopt
      refuses after a compaction;
      (h) ``torch_diag_cfg4_misses`` over 11b's plane and index, probe 1024,
@@ -182,8 +182,9 @@ Phases (each fails the run with a non-zero exit):
      ``torch_bench_attention_refold`` at B 256, S 256, best of 2 x 8 steps
      (cut from 3 x 16: an int8 layer takes 130 ms): the folded and int8
      layers within the script's bars of the baseline; (j) ``bash
-     scripts/torch_smoke.sh`` (in the background from (d)): ``SMOKE
-     PASSED``.
+     scripts/torch_smoke.sh`` (in the background beside (e)-(h)): ``SMOKE
+     PASSED``.  The timed parts (a)-(d) and (i) run before the background
+     processes start, with nothing else on the card or the host.
 
 Phase 2 also holds both ADC kernels against their plain versions at the
 shapes of paths A and B, and times them with the codes in L2, just
@@ -246,11 +247,11 @@ RERANK_TOP = 50
 # 7d: local files of about 4 KB in the corpus (cut from 16,384: 7d alone
 # took 502 s of the run at that size; from 8,192, whose host-bound ingest
 # took 97-230 s)
-SVC_FILES = 2048
+SVC_FILES = 4096
 # 7d's flat index, at which phase 2 holds fused_topk: the corpus's chunks
 # in a capacity of 2^15 rows
-SVC_ROWS = 10_220
-SVC_CAPACITY = 1 << 14
+SVC_ROWS = 20_425
+SVC_CAPACITY = 1 << 15
 SVC_UPLOADS = 16           # 7d: documents uploaded over HTTP
 CHAT_CLIENTS = 32          # 7e: concurrent chat clients
 CHAT_CALLS = 4             # 7e: chats a client
@@ -284,9 +285,9 @@ SHARD_GROW = 1 << 16       # rows added past the capacity (growth)
 SHARD_DOCS = 1024          # 9d's tail documents; 9e's encoded documents
 # phase 10, BASELINE configs 3 and 5 and the sweeps
 CFG3_ROWS = 8_802_304      # 10a: config 3's 8.8M rows of 768, tile-rounded
-STREAM_SECONDS = 10        # 10b, 10c: cut from the JAX scripts' 45 s
+STREAM_SECONDS = 20        # 10b, 10c: cut from the JAX scripts' 45 s
 CFG5_CAP = 1 << 23         # 10b: config 5's capacity and its live rows
-CFG5_LIVE = CFG5_CAP - CFG5_CAP // 64 + 5 * 1024     # after 5 batches
+CFG5_LIVE = CFG5_CAP - CFG5_CAP // 64 + 10 * 1024    # after 10 batches
 SWEEP_NLIST = 2048         # 10d: the IVF sweep over PATH_ROWS rows
 SWEEP_NPROBES = (4, 16, 64, 256, 2048)
 PQ_SWEEP_ROWS = 1 << 18    # 10d: the PQ sweeps
@@ -4741,10 +4742,10 @@ def scripts_refold(results):
 
 def scripts_phase(results, cfg4_index):
     """Phase 12, parts 12a-12j; each of 12a-12i runs with the counts set to
-    0 just before it.  12g's CPU build and 12j (the smoke script's
-    services, other processes) run in the background from 12d (the host-
-    bound timings of 12a-12c run alone) to their ends.  → launches by
-    part."""
+    0 just before it.  The timed parts (12a-12d, 12i) run alone; then 12g's
+    two snapshot builds and 12j (the smoke script's services), other
+    processes, run in the background beside the checks of 12e-12h.
+    → launches by part."""
     import gc
 
     import torch
@@ -4766,28 +4767,29 @@ def scripts_phase(results, cfg4_index):
     lap("12b")
     parts.update(scripts_ingest(results))
     lap("12c")
+    parts.update(scripts_encoder(results))
+    lap("12d")
+    parts.update(scripts_refold(results))
+    lap("12i")
     logs = {k: os.path.join(SCRIPTS_TMP, f"{k}.log")
             for k in ("ann_cpu", "ann_cuda", "smoke")}
+    ann = AnnAdoption(ANN_ROWS, "cuda", SEED + 81)
     ann_cpu = AnnAdoption(ANN_CPU_ROWS, "cpu", SEED + 82)
-    background = [start(ann_cpu.command(), logs["ann_cpu"]),
+    lap("12g_export")
+    background = [start(ann.command(), logs["ann_cuda"]),
+                  start(ann_cpu.command(), logs["ann_cpu"]),
                   start(["bash", os.path.join(ROOT, "scripts",
                                               "torch_smoke.sh")],
                         logs["smoke"])]
-    cpu_build, smoke = background
+    cuda_build, cpu_build, smoke = background
     try:
-        parts.update(scripts_encoder(results))
-        lap("12d")
         parts.update(scripts_quality(results))
         lap("12ef")
-        ann = AnnAdoption(ANN_ROWS, "cuda", SEED + 81)
-        text = finish(start(ann.command(), logs["ann_cuda"]),
-                      logs["ann_cuda"], "12g cuda build", 600)
-        parts.update(ann.adopt(results, text))
-        lap("12g_cuda")
         parts.update(scripts_diag(results, cfg4_index))
         lap("12h")
-        parts.update(scripts_refold(results))
-        lap("12i")
+        text = finish(cuda_build, logs["ann_cuda"], "12g cuda build", 600)
+        parts.update(ann.adopt(results, text))
+        lap("12g_cuda")
         text = finish(cpu_build, logs["ann_cpu"], "12g cpu build", 600)
         parts.update(ann_cpu.adopt(results, text))
         ann.refuse_after_compaction(results)
@@ -4925,14 +4927,14 @@ def main() -> int:
         topk_case("topk_b32_config3_d768_bf16", 32, CFG3_ROWS, CFG3_ROWS,
                   bf16, False, d=768, timed=True),
         # 10b: config 5's 2^23-row index after the stream (2^23 - 2^17
-        # prepopulated rows and 5 batches of 1024, one every 2 s for 10 s:
-        # 5 or 6), its B=32 queries and the read-back of one row a batch;
+        # prepopulated rows and 10 batches of 1024, one every 2 s for 20 s:
+        # 10 or 11), its B=32 queries and the read-back of one row a batch;
         # 10d: the sweep's ground truth, 64 queries over 2^22 rows
         topk_case("topk_b32_config5_bf16", 32, CFG5_CAP, CFG5_LIVE, bf16,
                   False, timed=True),
-        topk_case("topk_b5_config5_readback_bf16", 5, CFG5_CAP, CFG5_LIVE,
+        topk_case("topk_b10_config5_readback_bf16", 10, CFG5_CAP, CFG5_LIVE,
                   bf16, False, timed=True),
-        topk_case("topk_b6_config5_readback_bf16", 6, CFG5_CAP, CFG5_LIVE,
+        topk_case("topk_b11_config5_readback_bf16", 11, CFG5_CAP, CFG5_LIVE,
                   bf16, False),
         topk_case("topk_b64_sweep_bf16", 64, PATH_ROWS, PATH_ROWS, bf16,
                   False, timed=True),
@@ -4955,7 +4957,7 @@ def main() -> int:
                     False, timed=True) for b in (1, 2, 4, 8, 16, 64, 128)],
         topk_case("topk_b32_k11_diag_bf16", 32, 1 << 20, 1 << 20, bf16,
                   False, k=11, timed=True),
-        # 12b: the hash store's 10,000 rows in 16,384, k=5: a direct hybrid
+        # 12b: the hash store's 4,096 rows in 8,192, k=5: a direct hybrid
         # query (shared bias) and the micro-batched ones (per-query bias,
         # buckets of 1 ... 64); 12c: the ingest's 16,384 rows, one query
         topk_case("topk_b1_k5_http_bf16", 1, HTTP_CAPACITY, HTTP_CHUNKS, bf16,

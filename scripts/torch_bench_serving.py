@@ -132,13 +132,12 @@ def host_syncs(fn, dev) -> list[str]:
 
 def measure(*, clients: int = 256, batches=(32, 128, 256),
             per_client: int = 40, in_process: bool = False, rows: int = N,
-            corpus=None, sample: int = 0, device=None, log=print):
+            sample: int = 0, device=None, log=print):
     """The JAX script's runs → ``(results, state)``: its payload and
     ``state["answers"]``: for ``sample`` requests drawn with seed 5, each
     run's answer by request index ({(mode, max_batch): {gi: (vals,
     rows)}}), with ``queries`` and ``corpus`` to check them against.
-    ``device``: the card unless ``"cpu"``; ``corpus`` replaces the drawn
-    one ([rows, D] on the device)."""
+    ``device``: the card unless ``"cpu"``."""
     import torch
 
     from archi_tpu_torch.benchmarking.timing import measure_relay_rtt
@@ -147,8 +146,7 @@ def measure(*, clients: int = 256, batches=(32, 128, 256),
     from archi_tpu_torch.utils.hardware import default_device
 
     dev = default_device(device)
-    if corpus is None:
-        corpus = make_corpus(rows, D, device=dev)
+    corpus = make_corpus(rows, D, device=dev)
     n, d = corpus.shape
     bias = torch.zeros((n,), dtype=torch.float32, device=dev)
     _sync(dev)

@@ -676,18 +676,40 @@ def test_refold_int8_dots_are_exact_integer_products():
 
 
 def test_refold_scans_are_serially_dependent():
-    from scripts.torch_bench_attention_refold import (fold_weights, heads,
-                                                      make_inputs, scan_big,
-                                                      scan_small)
+    """Each step's product reads the carry the step before wrote: the scans
+    equal a float64 numpy recurrence (rtol 1e-5) at 1 and 3 steps, and 3
+    steps end elsewhere than 1.  Positive inputs keep tanh of the logits
+    near its mean, so each step's 1e-6 increment shows in the f32 sum."""
+    from scripts.torch_bench_attention_refold import scan_big, scan_small
 
-    w = make_inputs(1, 32, 384, device="cpu")
-    x = w.pop("x")
-    a_fold, _w = fold_weights(w)
-    q, k = heads(x @ w["wq"], 12), heads(x @ w["wk"], 12)
-    y = torch.einsum("bse,hef->bhsf", x, a_fold)
-    for scan, args in ((scan_small, (q, k)), (scan_big, (y, x))):
-        one, many = scan(*args, 1), scan(*args, 3)
-        assert math.isfinite(float(one)) and math.isfinite(float(many))
+    rng = np.random.default_rng(3)
+    q = 1.0 + np.abs(rng.standard_normal((1, 2, 8, 16)))
+    k = 0.01 + 0.01 * np.abs(rng.standard_normal((1, 2, 8, 16)))
+    y = 1.0 + np.abs(rng.standard_normal((1, 2, 8, 16)))
+    x = 0.01 + 0.01 * np.abs(rng.standard_normal((1, 8, 16)))
+
+    def ref_small(q, k, steps):
+        for _ in range(steps):
+            k = k + np.tanh(q @ k.transpose(0, 1, 3, 2)).mean(
+                axis=2)[..., None] * 1e-6
+        return k[0, 0, 0].sum()
+
+    def ref_big(y, x, steps):
+        for _ in range(steps):
+            x = x + np.tanh(y @ x[:, None].transpose(0, 1, 3, 2)).mean(
+                axis=(1, 2))[..., None] * 1e-6
+        return x[0, 0].sum()
+
+    t = lambda a: torch.from_numpy(a.astype(np.float32))  # noqa: E731
+    for scan, ref, args in ((scan_small, ref_small, (q, k)),
+                            (scan_big, ref_big, (y, x))):
+        got = {n: float(scan(*map(t, args), n)) for n in (1, 3)}
+        want = {n: ref(*args, n) for n in (1, 3)}
+        for n in (1, 3):
+            np.testing.assert_allclose(got[n], want[n], rtol=1e-5)
+        assert want[3] - want[1] > 1e-5
+        np.testing.assert_allclose(got[3] - got[1], want[3] - want[1],
+                                   rtol=1e-2)
 
 
 # ----------------------------------------------------------- shell scripts
