@@ -17,19 +17,27 @@ bounded added latency, multiplicative throughput.
 
 Failure isolation: a batch-function exception fans out to exactly the
 requests in that group (callers re-raise); the worker never dies.
+
+Spans (``utils/tracing.py``): ``batcher.batch`` around each batch (its
+id, size and kind), and for each of its requests ``batcher.queue``, from
+the request's submit to the batch's start.
 """
 
 from __future__ import annotations
 
+import itertools
 import logging
 import threading
 import time
 from dataclasses import dataclass, field
 from typing import Any, Callable, Hashable, Sequence
 
+from archi_tpu_torch.utils import tracing
 from archi_tpu_torch.utils.metrics import METRICS
 
 logger = logging.getLogger(__name__)
+
+_REQUEST_IDS = itertools.count(1)
 
 
 @dataclass
@@ -39,6 +47,10 @@ class _Request:
     done: threading.Event = field(default_factory=threading.Event)
     result: Any = None
     error: BaseException | None = None
+    # stamped at submit whether or not spans record, so that a request
+    # queued before recording began still gets its whole queue span
+    submitted_ns: int = field(default_factory=time.perf_counter_ns)
+    id: int = field(default_factory=lambda: next(_REQUEST_IDS))
 
 
 class MicroBatcher:
@@ -59,6 +71,7 @@ class MicroBatcher:
         only joins workers for 5 s).
         """
         self._run_batch = run_batch
+        self.name = name
         self.max_batch = int(max_batch)
         self.max_wait_s = float(max_wait_s)
         self.submit_timeout_s = (
@@ -111,15 +124,16 @@ class MicroBatcher:
             w.join(timeout=5)
 
     # --------------------------------------------------------------- worker
-    def _take_group(self) -> list[_Request]:
+    def _take_group(self) -> tuple[list[_Request], int]:
         """Wait for work, linger briefly for companions, then take the
-        largest same-signature group (FIFO head's signature)."""
+        largest same-signature group (FIFO head's signature).  Returns the
+        group and the number of requests it left in the queue."""
         with self._cv:
             while True:
                 while not self._queue and not self._closed:
                     self._cv.wait()
                 if self._closed and not self._queue:
-                    return []
+                    return [], 0
                 # linger: let concurrent callers join this batch.  A single
                 # wait() would wake on the FIRST notify and take a 2-request
                 # group under bursts — re-wait until the window closes or
@@ -138,33 +152,50 @@ class MicroBatcher:
                 group = group[: self.max_batch]
                 taken = set(map(id, group))
                 self._queue = [r for r in self._queue if id(r) not in taken]
-                return group
+                return group, len(self._queue)
+
+    def _kind(self, signature: Hashable) -> str:
+        """The search kind a signature starts with, else the batcher's
+        name."""
+        if isinstance(signature, tuple) and signature \
+                and isinstance(signature[0], str):
+            return signature[0]
+        return self.name
 
     def _loop(self) -> None:
         while True:
-            group = self._take_group()
+            group, depth = self._take_group()
             if not group:
                 return
             METRICS.inc("archi_micro_batches_total")
             METRICS.inc("archi_micro_batched_requests_total",
                         value=len(group))
-            try:
-                results = self._run_batch(
-                    group[0].signature, [r.payload for r in group])
-                if len(results) != len(group):
-                    raise RuntimeError(
-                        f"batch fn returned {len(results)} results for "
-                        f"{len(group)} requests")
-                for r, res in zip(group, results):
-                    r.result = res
-            except BaseException as e:  # noqa: BLE001 — fan out to callers
-                logger.exception("micro-batch failed (%d requests)",
-                                 len(group))
-                for r in group:
-                    r.error = e
-            finally:
-                for r in group:
-                    r.done.set()
+            sig = group[0].signature
+            with tracing.span("batcher.batch") as s:
+                if s.recording:
+                    for r in group:
+                        tracing.record("batcher.queue", r.submitted_ns,
+                                       s.start_ns, request=r.id, batch=s.id,
+                                       depth=depth)
+                    s.set(batch=s.id, size=len(group), kind=self._kind(sig))
+                self._run_group(sig, group)
+
+    def _run_group(self, sig: Hashable, group: list[_Request]) -> None:
+        try:
+            results = self._run_batch(sig, [r.payload for r in group])
+            if len(results) != len(group):
+                raise RuntimeError(
+                    f"batch fn returned {len(results)} results for "
+                    f"{len(group)} requests")
+            for r, res in zip(group, results):
+                r.result = res
+        except BaseException as e:  # noqa: BLE001 — fan out to callers
+            logger.exception("micro-batch failed (%d requests)", len(group))
+            for r in group:
+                r.error = e
+        finally:
+            for r in group:
+                r.done.set()
 
 
 def hybrid_batcher(store, *, max_batch: int = 32,

@@ -39,6 +39,7 @@ from archi_tpu_torch.models.tokenizer import basic_tokenize
 from archi_tpu_torch.native import count_route, native_analyze
 from archi_tpu_torch.utils.hardware import default_device
 from archi_tpu_torch.utils.stemmer import stem as porter_stem
+from archi_tpu_torch.utils.tracing import span
 
 CHUNK = 2048  # postings per work-list chunk
 _DELTA_BUCKETS = (2048, 8192, 32768, 131072, 524288)
@@ -87,9 +88,11 @@ def scatter_scores(rows_buf, tf_buf, dl_buf, starts, lens, idfs,
     Chunk i covers entries [starts[i], starts[i] + lens[i]) of the postings
     buffers with idf idfs[i]; impacts of one row add up over the chunks."""
     dev = rows_buf.device
-    lens_t = torch.as_tensor(lens, dtype=torch.long, device=dev)
-    starts_t = torch.as_tensor(starts, dtype=torch.long, device=dev)
-    idfs_t = torch.as_tensor(idfs, dtype=torch.float32, device=dev)
+    # copies from host lists: on the card each waits for the stream
+    with span("bm25.upload", wait=True):
+        lens_t = torch.as_tensor(lens, dtype=torch.long, device=dev)
+        starts_t = torch.as_tensor(starts, dtype=torch.long, device=dev)
+        idfs_t = torch.as_tensor(idfs, dtype=torch.float32, device=dev)
     total = int(np.sum(lens))
     chunk = torch.repeat_interleave(
         torch.arange(len(lens), device=dev), lens_t, output_size=total)
@@ -295,32 +298,38 @@ class BM25Index:
 
     def scores(self, query: str, n_pad: int) -> torch.Tensor:
         """Dense [n_pad] BM25 scores for the query (0 where no term hits)."""
-        self._ensure_built()
-        with self._buf_lock:  # consistent snapshot vs concurrent ingest
-            rows_buf, tf_buf, dl_buf = (
-                self._rows_buf, self._tf_buf, self._dl_buf)
-            segments = self._term_segments
-        starts, lens, idfs = [], [], []
-        for t in set(self.query_terms(query)):
-            tid = self._term_ids.get(t)
-            if tid is None:
-                continue
-            idf = self._idf(tid)
-            for start, length in segments.get(tid, ()):
-                while length > 0:
-                    step = min(length, CHUNK)
-                    starts.append(start)
-                    lens.append(step)
-                    idfs.append(idf)
-                    start += step
-                    length -= step
-        if not starts or rows_buf is None:
-            return torch.zeros((n_pad,), dtype=torch.float32, device=self.device)
-        return scatter_scores(
-            rows_buf, tf_buf, dl_buf, starts, lens,
-            np.asarray(idfs, np.float32),
-            float(np.float32(1.0 / max(self.avgdl, 1e-9))),
-            n_pad=n_pad, k1=self.k1, b=self.b)
+        with span("bm25.scores"):
+            self._ensure_built()
+            with self._buf_lock:  # consistent snapshot vs concurrent ingest
+                rows_buf, tf_buf, dl_buf = (
+                    self._rows_buf, self._tf_buf, self._dl_buf)
+                segments = self._term_segments
+            with span("bm25.analyze"):
+                terms = set(self.query_terms(query))
+            with span("bm25.worklist"):
+                starts, lens, idfs = [], [], []
+                for t in terms:
+                    tid = self._term_ids.get(t)
+                    if tid is None:
+                        continue
+                    idf = self._idf(tid)
+                    for start, length in segments.get(tid, ()):
+                        while length > 0:
+                            step = min(length, CHUNK)
+                            starts.append(start)
+                            lens.append(step)
+                            idfs.append(idf)
+                            start += step
+                            length -= step
+            if not starts or rows_buf is None:
+                return torch.zeros((n_pad,), dtype=torch.float32,
+                                   device=self.device)
+            with span("bm25.scatter"):
+                return scatter_scores(
+                    rows_buf, tf_buf, dl_buf, starts, lens,
+                    np.asarray(idfs, np.float32),
+                    float(np.float32(1.0 / max(self.avgdl, 1e-9))),
+                    n_pad=n_pad, k1=self.k1, b=self.b)
 
     def topk(self, query: str, n_pad: int, k: int = 10, *, alive_bias=None):
         """BM25-only ranking (vals, rows); rows with no hits score 0.  Equal

@@ -33,6 +33,7 @@ import torch
 from archi_tpu_torch.engine.topk import alive_to_bias, pad_bias_rows, topk_scores
 from archi_tpu_torch.ops.topk import quantize_int8
 from archi_tpu_torch.utils.hardware import default_device
+from archi_tpu_torch.utils.tracing import span
 
 MIN_CAPACITY = 1024
 _WRITE_BUCKETS = (256, 1024, 4096, 16384, 65536)
@@ -239,25 +240,36 @@ class FlatIndex:
     def search_dispatch(self, queries, k: int = 10, *, filter_mask=None,
                         bias=None):
         """Run the scan and return DEVICE (vals [B, k], rows [B, k])."""
-        q = torch.as_tensor(queries).to(self.device, torch.float32)
-        if q.dim() == 1:
-            q = q[None, :]
-        if self.normalize:
-            q = l2_normalize(q)
-        with self._buf_lock:  # consistent (emb, alive, n_rows) snapshot
-            emb_snap, alive_snap, n_rows_snap = self.emb, self.alive, self.n_rows
-        cap = alive_snap.shape[0]
-        alive = alive_snap
-        if filter_mask is not None:
-            fm = torch.as_tensor(filter_mask).to(self.device, torch.float32)
-            alive = alive * pad_bias_rows(fm, cap)
-        row_bias = alive_to_bias(alive)
-        if bias is not None:
-            # [N] shared or [B, N] per-query (batched hybrid); broadcasts
-            b = torch.as_tensor(bias).to(self.device, torch.float32)
-            row_bias = row_bias + pad_bias_rows(b, cap)
-        k_eff = min(k, max(len(self), 1))
-        return topk_scores(q, emb_snap, row_bias, n_rows_snap, k=k_eff)
+        with span("index.dispatch") as s:
+            # a copy from host memory: on the card it waits for the stream
+            on_host = not (torch.is_tensor(queries)
+                           and queries.device == self.device)
+            with span("index.upload", wait=on_host):
+                q = torch.as_tensor(queries).to(self.device, torch.float32)
+                fm = (None if filter_mask is None else torch.as_tensor(
+                    filter_mask).to(self.device, torch.float32))
+            if q.dim() == 1:
+                q = q[None, :]
+            if self.normalize:
+                q = l2_normalize(q)
+            with self._buf_lock:  # consistent (emb, alive, n_rows) snapshot
+                emb_snap, alive_snap, n_rows_snap = (
+                    self.emb, self.alive, self.n_rows)
+            cap = alive_snap.shape[0]
+            alive = alive_snap
+            if fm is not None:
+                alive = alive * pad_bias_rows(fm, cap)
+            row_bias = alive_to_bias(alive)
+            if bias is not None:
+                # [N] shared or [B, N] per-query (batched hybrid); broadcasts
+                b = torch.as_tensor(bias).to(self.device, torch.float32)
+                row_bias = row_bias + pad_bias_rows(b, cap)
+            if s.recording:
+                s.set(batch=int(q.shape[0]), live=int(n_rows_snap),
+                      bias="none" if bias is None else
+                      "per_query" if row_bias.dim() == 2 else "shared")
+            k_eff = min(k, max(len(self), 1))
+            return topk_scores(q, emb_snap, row_bias, n_rows_snap, k=k_eff)
 
     def search(self, queries, k: int = 10, *, filter_mask=None, bias=None):
         """Top-k search.
@@ -272,8 +284,9 @@ class FlatIndex:
         """
         vals, rows = self.search_dispatch(queries, k, filter_mask=filter_mask,
                                           bias=bias)
-        vals = vals.cpu().numpy()
-        rows = rows.cpu().numpy()
+        with span("index.readback", wait=True):
+            vals = vals.cpu().numpy()
+            rows = rows.cpu().numpy()
         ids = [
             [self._ids[r] if (v > -1e29 and r < len(self._ids)) else None
              for r, v in zip(rr, vv)]

@@ -18,11 +18,8 @@ import torch
 from archi_tpu_torch.ops.topk import MAX_K, NEG_INF, fused_topk, plain_topk
 
 __all__ = ["NEG_INF", "alive_to_bias", "pad_bias_rows", "next_pow2",
-           "plain_topk", "topk_scores", "topk_lower_first", "FUSED_FALLBACKS"]
+           "plain_topk", "topk_scores", "topk_lower_first"]
 
-#: count of k > MAX_K calls served by the plain version (exported to
-#: /metrics as ``archi_fused_topk_fallbacks_total``)
-FUSED_FALLBACKS = {"count": 0}
 _logger = logging.getLogger(__name__)
 
 
@@ -74,12 +71,12 @@ def topk_lower_first(x: torch.Tensor, k: int):
 
 
 def _count_fused_fallback(reason: str) -> None:
-    FUSED_FALLBACKS["count"] += 1
     from archi_tpu_torch.utils.metrics import METRICS
 
     METRICS.inc("archi_fused_topk_fallbacks_total")
     _logger.warning("fused top-k fell back to the plain version (%s) — "
-                    "fallback #%d", reason, FUSED_FALLBACKS["count"])
+                    "fallback #%d", reason,
+                    METRICS.counter_value("archi_fused_topk_fallbacks_total"))
 
 
 def topk_scores(queries, corpus, bias, n_active, *, k: int = 10):

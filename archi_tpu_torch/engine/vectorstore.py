@@ -34,6 +34,7 @@ from archi_tpu_torch.engine.topk import alive_to_bias, next_pow2, pad_bias_rows
 from archi_tpu_torch.utils.documents import Document
 from archi_tpu_torch.utils.hardware import default_device
 from archi_tpu_torch.utils.metrics import METRICS
+from archi_tpu_torch.utils.tracing import span
 
 #: device-memory budget for the batched-hybrid [B, capacity] f32 bias
 #: (patchable in tests)
@@ -236,15 +237,19 @@ class TorchVectorStore:
                     value=len(queries))
         if len(self.index) == 0:
             return [[] for _ in queries]
-        embs = self._embed_queries(queries)
+        with span("store.embed"):
+            embs = self._embed_queries(queries)
+        with span("store.filter"):
+            fm = self._filter_mask(filter, enabled_ids)
         nb = len(queries)
-        bucket = next_pow2(nb)
-        if bucket > nb:
-            embs = np.concatenate(
-                [embs, np.zeros((bucket - nb, embs.shape[1]), np.float32)])
-        fm = self._filter_mask(filter, enabled_ids)
-        ids, vals, rows = self.index.search(embs, k=k, filter_mask=fm)
-        return [self._rows_to_results(rows[b], vals[b]) for b in range(nb)]
+        with span("store.scan"):
+            bucket = next_pow2(nb)
+            if bucket > nb:
+                embs = np.concatenate(
+                    [embs, np.zeros((bucket - nb, embs.shape[1]), np.float32)])
+            ids, vals, rows = self.index.search(embs, k=k, filter_mask=fm)
+        with span("store.results"):
+            return [self._rows_to_results(rows[b], vals[b]) for b in range(nb)]
 
     def enable_micro_batching(self, *, max_batch: int = 32,
                               max_wait_ms: float = 4.0,
@@ -380,31 +385,37 @@ class TorchVectorStore:
             return out
         METRICS.inc("archi_engine_queries", labels={"kind": "hybrid"},
                     value=len(queries))
-        bm = torch.stack([self.bm25.scores(q, cap) for q in queries])  # [B, N]
-        bm_max = bm.max(dim=1).values.cpu().numpy()
+        with span("store.bm25"):
+            bm = torch.stack([self.bm25.scores(q, cap) for q in queries])
+        with span("store.fallback_test", wait=True):
+            bm_max = bm.max(dim=1).values.cpu().numpy()
         # embed as QUERIES (instruction prefixes apply to queries only)
-        embs = self._embed_queries(queries)
-        fm = self._filter_mask(filter, enabled_ids)
-        # pad the batch to a power of two with zero queries and zero bias;
-        # their rows of the result are never returned
+        with span("store.embed"):
+            embs = self._embed_queries(queries)
+        with span("store.filter"):
+            fm = self._filter_mask(filter, enabled_ids)
         nb = len(queries)
-        bucket = next_pow2(nb)
-        if bucket > nb:
-            embs = np.concatenate(
-                [embs, np.zeros((bucket - nb, embs.shape[1]), np.float32)])
-            bm = torch.cat([bm, bm.new_zeros((bucket - nb, bm.shape[1]))])
-        ids, vals, rows = self.index.search(
-            embs, k=k, filter_mask=fm,
-            bias=bm * (bm25_weight / max(semantic_weight, 1e-9)))
-        out = []
-        for b in range(nb):
-            results = self._rows_to_results(rows[b], vals[b])
-            if bm_max[b] <= 0.0:
-                # semantic fallback: report UNSCALED cosine scores when the
-                # lexical side matched nothing
-                out.append(results)
-            else:
-                out.append([(d, s * semantic_weight) for d, s in results])
+        with span("store.scan"):
+            # pad the batch to a power of two with zero queries and zero
+            # bias; their rows of the result are never returned
+            bucket = next_pow2(nb)
+            if bucket > nb:
+                embs = np.concatenate(
+                    [embs, np.zeros((bucket - nb, embs.shape[1]), np.float32)])
+                bm = torch.cat([bm, bm.new_zeros((bucket - nb, bm.shape[1]))])
+            ids, vals, rows = self.index.search(
+                embs, k=k, filter_mask=fm,
+                bias=bm * (bm25_weight / max(semantic_weight, 1e-9)))
+        with span("store.results"):
+            out = []
+            for b in range(nb):
+                results = self._rows_to_results(rows[b], vals[b])
+                if bm_max[b] <= 0.0:
+                    # semantic fallback: report UNSCALED cosine scores when
+                    # the lexical side matched nothing
+                    out.append(results)
+                else:
+                    out.append([(d, s * semantic_weight) for d, s in results])
         return out
 
     def warmup(self, k: int = 5) -> None:

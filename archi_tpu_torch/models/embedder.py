@@ -22,6 +22,7 @@ from archi_tpu_torch.models.bert import BertConfig, BertEncoder, encode
 from archi_tpu_torch.models.hf_loader import load_or_init
 from archi_tpu_torch.models.tokenizer import WordPieceTokenizer
 from archi_tpu_torch.utils.hardware import default_device
+from archi_tpu_torch.utils.tracing import span
 
 SEQ_BUCKETS = (64, 128, 256, 512)
 BATCH_BUCKETS = (8, 32, 128, 256)
@@ -144,21 +145,29 @@ class TorchEmbedder:
         # launch every group first (the device runs ahead of the host), then
         # collect
         pending = []
-        for group in groups:
-            ids, mask = self._pad_batch([id_lists[g] for g in group])
-            pending.append((group, self._encode_split(ids, mask)))
-        for group, emb in pending:
-            out[np.asarray(group)] = emb[: len(group)].cpu().numpy()
+        with span("embed.encode") as s:
+            if s.recording:
+                s.set(lengths=[len(i) for i in id_lists])
+            for group in groups:
+                ids, mask = self._pad_batch([id_lists[g] for g in group])
+                pending.append((group, self._encode_split(ids, mask)))
+        with span("embed.readback", wait=True):
+            for group, emb in pending:
+                out[np.asarray(group)] = emb[: len(group)].cpu().numpy()
         return out
 
     def _encode_split(self, ids: np.ndarray, mask: np.ndarray):
         """One padded batch → [bsz, H] on ``device``: part i of
         ``len(devices)`` equal parts encoded on ``devices[i]``."""
         per = ids.shape[0] // len(self.devices)
-        outs = [encode(self._replicas[dev],
-                       torch.from_numpy(ids[i * per:(i + 1) * per]).to(dev),
-                       torch.from_numpy(mask[i * per:(i + 1) * per]).to(dev))
-                for i, dev in enumerate(self.devices)]
+        outs = []
+        for i, dev in enumerate(self.devices):
+            part = slice(i * per, (i + 1) * per)
+            # copies from host arrays: on the card each waits for the stream
+            with span("embed.upload", wait=True):
+                ids_d = torch.from_numpy(ids[part]).to(dev)
+                mask_d = torch.from_numpy(mask[part]).to(dev)
+            outs.append(encode(self._replicas[dev], ids_d, mask_d))
         return torch.cat([o.to(self.device) for o in outs])
 
     # ------------------------------------------------- Embeddings interface
@@ -175,5 +184,7 @@ class TorchEmbedder:
     def encode_numpy(self, texts: Sequence[str]) -> np.ndarray:
         if not texts:
             return np.zeros((0, self.dim), np.float32)
-        id_lists = [self.tokenizer.encode(t, self.max_length) for t in texts]
+        with span("embed.tokenize"):
+            id_lists = [self.tokenizer.encode(t, self.max_length)
+                        for t in texts]
         return self.encode_ids(id_lists)

@@ -74,11 +74,11 @@ class MetricsRegistry:
             self.registry, self.name, self.labels = registry, name, labels
 
         def __enter__(self):
-            self.t0 = time.time()
+            self.t0 = time.perf_counter()
             return self
 
         def __exit__(self, *exc):
-            self.registry.observe(self.name, time.time() - self.t0,
+            self.registry.observe(self.name, time.perf_counter() - self.t0,
                                   self.labels)
 
     def timer(self, name: str, labels: Optional[dict] = None) -> "_Timer":
@@ -96,7 +96,9 @@ class MetricsRegistry:
         lines = []
         with self._lock:
             for (name, labels), v in sorted(self._counters.items()):
-                lines.append(f"{name}_total{self._fmt_labels(labels)} {v}")
+                # a counter is exposed as <name>_total, once
+                total = name if name.endswith("_total") else name + "_total"
+                lines.append(f"{total}{self._fmt_labels(labels)} {v}")
             for (name, labels), v in sorted(self._gauges.items()):
                 lines.append(f"{name}{self._fmt_labels(labels)} {v}")
             for (name, labels), (count, total, buckets) in sorted(

@@ -349,6 +349,14 @@ class SmokeFailure(RuntimeError):
     pass
 
 
+def topk_fallbacks() -> float:
+    """Top-k calls served by the plain version so far (the counter
+    ``archi_fused_topk_fallbacks_total``)."""
+    from archi_tpu_torch.utils.metrics import METRICS
+
+    return METRICS.counter_value("archi_fused_topk_fallbacks_total")
+
+
 def check(cond: bool, msg: str) -> None:
     if not cond:
         raise SmokeFailure(msg)
@@ -769,7 +777,6 @@ def main_path(results: dict):
     import torch
 
     from archi_tpu_torch import native
-    from archi_tpu_torch.engine import topk as engine_topk
     from archi_tpu_torch.engine.vectorstore import TorchVectorStore
     from archi_tpu_torch.models.bert import BertConfig
     from archi_tpu_torch.models.embedder import TorchEmbedder
@@ -795,7 +802,7 @@ def main_path(results: dict):
         f"{time.perf_counter() - t0:.1f} s (bf16, random weights, seed {SEED})")
 
     # ---- the main path, counted
-    engine_topk.FUSED_FALLBACKS["count"] = 0
+    fb0 = topk_fallbacks()
     reset_launches()
     native.reset_routes()
     t0 = time.perf_counter()
@@ -844,7 +851,7 @@ def main_path(results: dict):
         [docs[i] for i in range(256)], k=10)
     torch.cuda.synchronize()
     launches, routes = dict(LAUNCHES), dict(ROUTE_LAUNCHES)
-    fallbacks = engine_topk.FUSED_FALLBACKS["count"]
+    fallbacks = topk_fallbacks() - fb0
     log(f"  main-path launches {launches}, routes {routes}, top-k fallbacks "
         f"{fallbacks}")
     check(launches["fused_topk"] > 0, "fused_topk never launched")
@@ -1086,7 +1093,6 @@ def path_a(results, emb, docs, vocab):
 
     from archi_tpu_torch import native
     from archi_tpu_torch.bin.bootstrap import build_index
-    from archi_tpu_torch.engine import topk as engine_topk
     from archi_tpu_torch.engine.ann_index import AnnFlatIndex
     from archi_tpu_torch.engine.vectorstore import TorchVectorStore
     from archi_tpu_torch.ops import LAUNCHES, ROUTE_LAUNCHES, reset_launches
@@ -1107,7 +1113,7 @@ def path_a(results, emb, docs, vocab):
     out = {}
 
     # ---- the path, counted
-    engine_topk.FUSED_FALLBACKS["count"] = 0
+    fb0 = topk_fallbacks()
     reset_launches()
     native.reset_routes()
     t0 = time.perf_counter()
@@ -1157,7 +1163,7 @@ def path_a(results, emb, docs, vocab):
     torch.cuda.synchronize()
     launches, routes = dict(LAUNCHES), dict(ROUTE_LAUNCHES)
     log(f"  path A launches {launches}, routes {routes}, top-k fallbacks "
-        f"{engine_topk.FUSED_FALLBACKS['count']}")
+        f"{topk_fallbacks() - fb0}")
     for name in ("adc_scores", "fused_topk", "encoder_attention"):
         check(launches[name] > 0, f"path A: {name} never launched")
     for name in ("fused_topk", "encoder_attention"):
@@ -1167,7 +1173,7 @@ def path_a(results, emb, docs, vocab):
     check(routes["adc_scores:vector"] == launches["adc_scores"],
           f"path A: adc_scores launches off the vectorised route {routes}")
     results.setdefault("routes", {})["path_a"] = routes
-    check(engine_topk.FUSED_FALLBACKS["count"] == 0, "top-k fell back")
+    check(topk_fallbacks() == fb0, "top-k fell back")
 
     # ---- checks.  Limits from the first card runs (PERF.md): stored
     # rows and documents (hybrid) read 1.0; recall@10 read 0.781 and 0.756,
@@ -1458,7 +1464,6 @@ def service_flat(results, docs, vocab):
     import numpy as np
 
     from archi_tpu_torch.bin.bootstrap import build_vectorstore
-    from archi_tpu_torch.engine import topk as engine_topk
     from archi_tpu_torch.engine.flat_index import FlatIndex
     from archi_tpu_torch.engine.reranker import MaxSimReranker
     from archi_tpu_torch.models.embedder import TorchEmbedder
@@ -1496,7 +1501,7 @@ def service_flat(results, docs, vocab):
         reqs.append(calls)
     n_req = SVC_CLIENTS * SVC_CALLS
 
-    engine_topk.FUSED_FALLBACKS["count"] = 0
+    fb0 = topk_fallbacks()
     reset_launches()
     b0 = METRICS.counter_value("archi_micro_batches_total")
     r0 = METRICS.counter_value("archi_micro_batched_requests_total")
@@ -1506,7 +1511,7 @@ def service_flat(results, docs, vocab):
     batches = METRICS.counter_value("archi_micro_batches_total") - b0
     served = METRICS.counter_value("archi_micro_batched_requests_total") - r0
     check_routes("7a", launches, routes)
-    check(engine_topk.FUSED_FALLBACKS["count"] == 0, "7a: top-k fell back")
+    check(topk_fallbacks() == fb0, "7a: top-k fell back")
 
     # the same requests one at a time from one thread, the direct path
     t0 = time.perf_counter()
@@ -1645,7 +1650,6 @@ def service_xl(results, vocab):
     import torch
 
     from archi_tpu_torch.bin.bootstrap import build_vectorstore
-    from archi_tpu_torch.engine import topk as engine_topk
     from archi_tpu_torch.engine.xl_index import XlPQIndex
     from archi_tpu_torch.ops import LAUNCHES, ROUTE_LAUNCHES, reset_launches
 
@@ -1668,7 +1672,7 @@ def service_xl(results, vocab):
     corpus = ClusteredRows(XL_ROWS, SEED + 10, d=idx.dim)
     fill = synthetic_texts(rng, vocab, XL_ROWS, 3)
 
-    engine_topk.FUSED_FALLBACKS["count"] = 0
+    fb0 = topk_fallbacks()
     reset_launches()
     t0 = time.perf_counter()
     for s0 in range(0, XL_ROWS, FILL_BATCH):
@@ -1759,7 +1763,7 @@ def service_xl(results, vocab):
     launches, routes = dict(LAUNCHES), dict(ROUTE_LAUNCHES)
     check_routes("7c", launches, routes,
                  ("fused_topk", "encoder_attention", "adc_scores_lut16"))
-    check(engine_topk.FUSED_FALLBACKS["count"] == 0, "7c: top-k fell back")
+    check(topk_fallbacks() == fb0, "7c: top-k fell back")
     out.update(requests=len(got), qps_micro_batched=len(got) / wall,
                **latency_ms(lat))
     results["service"]["xl"] = out
@@ -1859,7 +1863,6 @@ def service_data_manager(results, vocab):
 
     from archi_tpu_torch.bin.service_data_manager import build_app
     from archi_tpu_torch.data.chunking import character_split
-    from archi_tpu_torch.engine import topk as engine_topk
     from archi_tpu_torch.engine.flat_index import FlatIndex
     from archi_tpu_torch.ops import LAUNCHES, ROUTE_LAUNCHES, reset_launches
     from archi_tpu_torch.utils.metrics import METRICS
@@ -1895,7 +1898,7 @@ def service_data_manager(results, vocab):
     os.environ.pop("DATA_MANAGER_TOKEN", None)
 
     # ---- the service: initial ingestion, warmup, 64 clients, counted
-    engine_topk.FUSED_FALLBACKS["count"] = 0
+    fb0 = topk_fallbacks()
     reset_launches()
     b0 = METRICS.counter_value("archi_micro_batches_total")
     r0 = METRICS.counter_value("archi_micro_batched_requests_total")
@@ -1949,7 +1952,7 @@ def service_data_manager(results, vocab):
     batches = METRICS.counter_value("archi_micro_batches_total") - b0
     served = METRICS.counter_value("archi_micro_batched_requests_total") - r0
     check_routes("7d", launches, routes)
-    check(engine_topk.FUSED_FALLBACKS["count"] == 0, "7d: top-k fell back")
+    check(topk_fallbacks() == fb0, "7d: top-k fell back")
 
     # every answer against the direct path in-process (not counted)
     bad = [(c, j) for c in range(SVC_CLIENTS)
@@ -1979,7 +1982,7 @@ def service_data_manager(results, vocab):
     ctx.scheduler.stop()
     b.close()
     del st, ctx, app, b
-    engine_topk.FUSED_FALLBACKS["count"] = 0
+    fb0 = topk_fallbacks()
     reset_launches()
     t0 = time.perf_counter()
     app, ctx = build_app(overrides=overrides, device=DEV)
@@ -2045,12 +2048,12 @@ def service_data_manager(results, vocab):
     sync()
     launches_w, routes_w = dict(LAUNCHES), dict(ROUTE_LAUNCHES)
     check_routes("7d writes", launches_w, routes_w)
-    check(engine_topk.FUSED_FALLBACKS["count"] == 0, "7d: top-k fell back")
+    check(topk_fallbacks() == fb0, "7d: top-k fell back")
     rose = {k: after.get(k, 0.0) - before.get(k, 0.0) for k in (
         'archi_engine_queries_total{kind="hybrid"}',
         'archi_engine_queries_total{kind="semantic"}',
-        "archi_micro_batches_total_total",
-        "archi_micro_batched_requests_total_total")}
+        "archi_micro_batches_total",
+        "archi_micro_batched_requests_total")}
     check(all(v > 0 for v in rose.values())
           and after["archi_index_chunks"] == want,
           f"7d: /metrics {rose}, {after.get('archi_index_chunks')} chunks")
@@ -2248,7 +2251,6 @@ def service_chat(results, url, st, overrides, texts, vocab, miss):
 
     from archi_tpu_torch.bin.bootstrap import build_context
     from archi_tpu_torch.bin.service_chat import build_app as build_chat
-    from archi_tpu_torch.engine import topk as engine_topk
     from archi_tpu_torch.engine.remote_vectorstore import RemoteVectorStore
     from archi_tpu_torch.engine.reranker import (MaxSimReranker,
                                                  RerankingRetriever)
@@ -2314,7 +2316,7 @@ def service_chat(results, url, st, overrides, texts, vocab, miss):
             with lock:
                 errors.append(f"client {c}: {exc!r}")
 
-    engine_topk.FUSED_FALLBACKS["count"] = 0
+    fb0 = topk_fallbacks()
     reset_launches()
     shapes = KernelShapes()
     with shapes:
@@ -2395,7 +2397,7 @@ def service_chat(results, url, st, overrides, texts, vocab, miss):
         sync()
     launches, routes = dict(LAUNCHES), dict(ROUTE_LAUNCHES)
     check_routes("7e", launches, routes)
-    check(engine_topk.FUSED_FALLBACKS["count"] == 0, "7e: top-k fell back")
+    check(topk_fallbacks() == fb0, "7e: top-k fell back")
     out["shapes_remote"] = shapes.as_dict()
 
     # every answer against the direct path on 7d's store (not counted)
@@ -2474,7 +2476,7 @@ def service_chat(results, url, st, overrides, texts, vocab, miss):
     # a question of each kind, the BM25-miss query last
     rr_questions = [questions[i][i % CHAT_CALLS]
                     for i in range(CHAT_RERANK - 1)] + [questions[0][-1]]
-    engine_topk.FUSED_FALLBACKS["count"] = 0
+    fb0 = topk_fallbacks()
     reset_launches()
     rr_shapes = KernelShapes()
     rr_answers, rr_lat = [], []
@@ -2489,7 +2491,7 @@ def service_chat(results, url, st, overrides, texts, vocab, miss):
         sync()
     rr_launches, rr_routes = dict(LAUNCHES), dict(ROUTE_LAUNCHES)
     check_routes("7e rerank", rr_launches, rr_routes)
-    check(engine_topk.FUSED_FALLBACKS["count"] == 0,
+    check(topk_fallbacks() == fb0,
           "7e rerank: top-k fell back")
     direct = RerankingRetriever(
         HybridRetriever(st, k=CHAT_OVERFETCH, bm25_weight=0.6,
@@ -2581,7 +2583,6 @@ def entry_services(st, overrides, texts, vocab):
                                      service_redmine)
     from archi_tpu_torch.bin.bootstrap import build_context
     from archi_tpu_torch.bin.service_grader import build_app as build_grader
-    from archi_tpu_torch.engine import topk as engine_topk
     from archi_tpu_torch.ops import LAUNCHES, ROUTE_LAUNCHES, reset_launches
     from archi_tpu_torch.providers.chat_model import ScriptedChatModel
     from archi_tpu_torch.utils.messages import Message, ToolCall
@@ -2614,7 +2615,7 @@ def entry_services(st, overrides, texts, vocab):
                        for i in range(ENTRY_QUESTIONS)]
                  for bot in ("mattermost", "piazza")}
 
-    engine_topk.FUSED_FALLBACKS["count"] = 0
+    fb0 = topk_fallbacks()
     reset_launches()
     shapes, rec = KernelShapes(), Recorder()
     with shapes, rec:
@@ -2704,7 +2705,7 @@ def entry_services(st, overrides, texts, vocab):
         sync()
     launches, routes = dict(LAUNCHES), dict(ROUTE_LAUNCHES)
     check_routes("7f services", launches, routes)
-    check(engine_topk.FUSED_FALLBACKS["count"] == 0, "7f: top-k fell back")
+    check(topk_fallbacks() == fb0, "7f: top-k fell back")
     ctx.scheduler.stop()
 
     # every output against the direct search on 7d's store (not counted)
@@ -2758,7 +2759,6 @@ def entry_evaluate():
     from archi_tpu_torch.benchmarking.fixture import fixture_corpus
     from archi_tpu_torch.bin.service_benchmark import run_benchmark
     from archi_tpu_torch.data.chunking import character_split
-    from archi_tpu_torch.engine import topk as engine_topk
     from archi_tpu_torch.ops import LAUNCHES, ROUTE_LAUNCHES, reset_launches
 
     out, parts = {}, {}
@@ -2787,7 +2787,7 @@ def entry_evaluate():
             "out_dir": os.path.join(root, "out")}}}
 
     # ---- the benchmark service, counted
-    engine_topk.FUSED_FALLBACKS["count"] = 0
+    fb0 = topk_fallbacks()
     reset_launches()
     shapes = KernelShapes()
     t0 = time.perf_counter()
@@ -2797,7 +2797,7 @@ def entry_evaluate():
     out["benchmark_s"] = time.perf_counter() - t0
     parts["entry_benchmark"] = (dict(LAUNCHES), dict(ROUTE_LAUNCHES))
     check_routes("7f benchmark", *parts["entry_benchmark"])
-    check(engine_topk.FUSED_FALLBACKS["count"] == 0,
+    check(topk_fallbacks() == fb0,
           "7f benchmark: top-k fell back")
     st = ctx.vectorstore
     check(st.count() == EVAL_ROWS and st.index.capacity == EVAL_CAPACITY,
@@ -2859,7 +2859,7 @@ def entry_evaluate():
             got = got.get("totals", got)
         return got, time.perf_counter() - t1
 
-    engine_topk.FUSED_FALLBACKS["count"] = 0
+    fb0 = topk_fallbacks()
     reset_launches()
     shapes = KernelShapes()
     runs = {}
@@ -2871,7 +2871,7 @@ def entry_evaluate():
     parts["entry_evaluate"] = (dict(LAUNCHES), dict(ROUTE_LAUNCHES))
     check_routes("7f evaluate", *parts["entry_evaluate"],
                  names=("fused_topk",))
-    check(engine_topk.FUSED_FALLBACKS["count"] == 0,
+    check(topk_fallbacks() == fb0,
           "7f evaluate: top-k fell back")
     (card, card_s), (cpu, cpu_s) = runs[("fixture", DEV)], \
         runs[("fixture", "cpu")]
@@ -3312,7 +3312,6 @@ def shard_flat(results):
     import numpy as np
     import torch
 
-    from archi_tpu_torch.engine import topk as engine_topk
     from archi_tpu_torch.engine.flat_index import FlatIndex
     from archi_tpu_torch.engine.sharded_index import ShardedFlatIndex, _merge
     from archi_tpu_torch.ops import LAUNCHES, ROUTE_LAUNCHES, reset_launches
@@ -3326,7 +3325,7 @@ def shard_flat(results):
 
     sharded = ShardedFlatIndex(384, devices=[DEV] * SHARDS)
     flat = FlatIndex(384, device=DEV)
-    engine_topk.FUSED_FALLBACKS["count"] = 0
+    fb0 = topk_fallbacks()
     reset_launches()
     t_sharded = t_flat = 0.0
     for s0 in range(0, SHARD_ROWS, SHARD_BLOCK):
@@ -3432,7 +3431,7 @@ def shard_flat(results):
     sync()
     launches, routes = dict(LAUNCHES), dict(ROUTE_LAUNCHES)
     check_routes("9a", launches, routes, ("fused_topk",))
-    check(engine_topk.FUSED_FALLBACKS["count"] == 0, "9a: top-k fell back")
+    check(topk_fallbacks() == fb0, "9a: top-k fell back")
     log(f"  9a ({results['card']}): grew to {sharded.capacity} "
         f"({sharded.shard_cap} a shard) in "
         f"{out['grow_s_sharded']:.2f} s (one index {out['grow_s_flat']:.2f} "
@@ -3596,7 +3595,6 @@ def shard_xl(results, emb, vocab):
     import torch
 
     from archi_tpu_torch.bin.bootstrap import build_vectorstore
-    from archi_tpu_torch.engine import topk as engine_topk
     from archi_tpu_torch.engine.host_store import BF16, HostVectorStore
     from archi_tpu_torch.engine.sharded_xl import ShardedXlPQIndex
     from archi_tpu_torch.models.train_encoder import save_model_dir
@@ -3623,7 +3621,7 @@ def shard_xl(results, emb, vocab):
     corpus = ClusteredRows(XL_ROWS, SEED + 10, d=idx.dim)
     fill = synthetic_texts(rng, vocab, XL_ROWS, 3)
 
-    engine_topk.FUSED_FALLBACKS["count"] = 0
+    fb0 = topk_fallbacks()
     reset_launches()
     t0 = time.perf_counter()
     for s0 in range(0, XL_ROWS, FILL_BATCH):
@@ -3693,7 +3691,7 @@ def shard_xl(results, emb, vocab):
     launches, routes = dict(LAUNCHES), dict(ROUTE_LAUNCHES)
     check_routes("9d", launches, routes,
                  ("fused_topk", "encoder_attention", "adc_scores_lut16"))
-    check(engine_topk.FUSED_FALLBACKS["count"] == 0, "9d: top-k fell back")
+    check(topk_fallbacks() == fb0, "9d: top-k fell back")
     st._batcher.close()
 
     # save/load round trip
@@ -3808,13 +3806,12 @@ def counted(part: str, names, run, shapes=None):
 
     import torch
 
-    from archi_tpu_torch.engine import topk as engine_topk
     from archi_tpu_torch.ops import LAUNCHES, ROUTE_LAUNCHES, reset_launches
 
     on_card = DEV == "cuda"
     if on_card:
         torch.cuda.reset_peak_memory_stats()
-    engine_topk.FUSED_FALLBACKS["count"] = 0
+    fb0 = topk_fallbacks()
     reset_launches()
     t0 = time.perf_counter()
     with shapes if shapes is not None else contextlib.nullcontext():
@@ -3826,7 +3823,7 @@ def counted(part: str, names, run, shapes=None):
         check_routes(part, launches, routes, names)
     else:
         check_planned_routes(part, launches, routes, names, shapes)
-    check(engine_topk.FUSED_FALLBACKS["count"] == 0,
+    check(topk_fallbacks() == fb0,
           f"{part}: top-k fell back")
     peak = torch.cuda.max_memory_allocated() / 2 ** 30 if on_card else None
     return out, {part: (launches, routes)}, seconds, peak

@@ -293,11 +293,11 @@ def test_metrics_show_the_port_counters(services):
     after = _scrape(port_url)
     rose = {k: after.get(k, 0.0) - before.get(k, 0.0) for k in (
         'archi_engine_queries_total{kind="hybrid"}',
-        "archi_micro_batches_total_total",
-        "archi_micro_batched_requests_total_total")}
+        "archi_micro_batches_total",
+        "archi_micro_batched_requests_total")}
     assert rose['archi_engine_queries_total{kind="hybrid"}'] >= len(threads)
-    assert rose["archi_micro_batched_requests_total_total"] >= len(threads)
-    assert rose["archi_micro_batches_total_total"] > 0
+    assert rose["archi_micro_batched_requests_total"] >= len(threads)
+    assert rose["archi_micro_batches_total"] > 0
     assert after["archi_index_chunks"] == ctx.vectorstore.count()
     assert after["archi_catalog_documents"] == ctx.catalog.stats()["total"]
     assert after.get("archi_ingest_chunks_total", 0) >= 24

@@ -141,11 +141,9 @@ def test_k_above_kernel_list_takes_counted_plain_route(caplog):
     from archi_tpu_torch.utils.metrics import METRICS
 
     q, e, bias = _inputs(4, 3, 32, 512, 500, "float32", True)
-    before = ttopk.FUSED_FALLBACKS["count"]
     metric = METRICS.counter_value("archi_fused_topk_fallbacks_total")
     with caplog.at_level("WARNING"):
         tv, ti = ttopk.topk_scores(*_torch(q, e, bias, "float32"), 500, k=200)
-    assert ttopk.FUSED_FALLBACKS["count"] == before + 1
     assert METRICS.counter_value("archi_fused_topk_fallbacks_total") \
         == metric + 1
     assert "k=200" in caplog.text
