@@ -3,21 +3,25 @@
 Counterpart of ``archi_tpu/engine/bm25.py``.
 
 - Postings live in flat device tensors (rows [CAP] int32, tf [CAP] f32,
-  dl [CAP] f32) grouped into per-term SEGMENTS.  The host (which knows the
-  query's few terms) emits a list of chunk descriptors over the query
-  terms' segments; the device gathers those entries, computes the BM25
-  impacts and ``index_add_``s them into a dense [n_pad] score vector.
+  dl [CAP] f32) grouped into per-term SEGMENTS, cut into CHUNK-sized
+  PIECES when the buffers change.  For a batch of queries the host (which
+  knows the queries' few terms) emits one work list of the pieces of every
+  query's terms, copies it to the device once, and one scatter kernel
+  (``ops/bm25.py``) computes the BM25 impacts and adds them into a dense
+  [B, n_pad] score matrix.
 - **Global stats enter at QUERY time**: each entry stores its raw term
-  frequency and document length; ``idf(term)`` (exact, from the host df
-  counter) and ``avgdl`` (exact, from running totals) are applied per
+  frequency and document length; ``idf(term)`` (exact, from the df
+  counts) and ``avgdl`` (exact, from running totals) are applied per
   query.  Ingest is therefore incremental and exact.
 - Incremental adds buffer a host-side delta; the first query after an
-  ingest batch appends the delta to NEW device buffers (queries running
-  concurrently keep their snapshot) and adds one segment per touched term.
-  After ``REBUILD_FLUSHES`` flushes (or on ``remove``) a full rebuild
-  re-sorts postings into one segment per term.
-- The dense score vector feeds the fused top-k as the per-row additive
-  bias, or a stable sort for BM25-only ranking.
+  ingest batch appends the delta to NEW device buffers and adds one
+  segment per touched term.  After ``REBUILD_FLUSHES`` flushes (or on
+  ``remove``) a full rebuild re-sorts postings into one segment per term.
+  Each build or flush publishes a new ``_Snapshot`` (buffers, pieces, df
+  counts and document stats) in one assignment: queries running
+  concurrently keep the one they took, never a mix of two.
+- The dense score rows feed the fused top-k as the per-row additive bias,
+  or a stable sort for BM25-only ranking.
 
 Scoring: Okapi BM25 with the Lucene-style non-negative idf
 ``ln(1 + (N - df + 0.5)/(df + 0.5))``, k1=1.2, b=0.75.  The JSON format of
@@ -30,14 +34,16 @@ import json
 import math
 import os
 import threading
-from typing import Sequence
+from typing import NamedTuple, Optional, Sequence
 
 import numpy as np
 import torch
 
 from archi_tpu_torch.models.tokenizer import basic_tokenize
 from archi_tpu_torch.native import count_route, native_analyze
+from archi_tpu_torch.ops.bm25 import IDF, LENGTH, QUERY, START, bm25_scatter
 from archi_tpu_torch.utils.hardware import default_device
+from archi_tpu_torch.utils.metrics import METRICS
 from archi_tpu_torch.utils.stemmer import stem as porter_stem
 from archi_tpu_torch.utils.tracing import span
 
@@ -81,31 +87,31 @@ def analyze(text: str, *, stemming: bool = False,
     return toks
 
 
-def scatter_scores(rows_buf, tf_buf, dl_buf, starts, lens, idfs,
-                   inv_avgdl: float, *, n_pad: int, k1: float, b: float):
-    """Score the work-list chunks into a dense [n_pad] f32 vector.
+def _cut(starts: np.ndarray, lengths: np.ndarray):
+    """Segments (start, length) → their CHUNK-sized pieces [n, 2] int32
+    (start, length), segment after segment, and each segment's count."""
+    counts = -(-lengths // CHUNK)
+    seg = np.repeat(np.arange(len(counts)), counts)
+    off = (np.arange(int(counts.sum()))
+           - np.repeat(np.cumsum(counts) - counts, counts)) * CHUNK
+    pieces = np.stack([starts[seg] + off,
+                       np.minimum(lengths[seg] - off, CHUNK)], 1)
+    return pieces.astype(np.int32), counts
 
-    Chunk i covers entries [starts[i], starts[i] + lens[i]) of the postings
-    buffers with idf idfs[i]; impacts of one row add up over the chunks."""
-    dev = rows_buf.device
-    # copies from host lists: on the card each waits for the stream
-    with span("bm25.upload", wait=True):
-        lens_t = torch.as_tensor(lens, dtype=torch.long, device=dev)
-        starts_t = torch.as_tensor(starts, dtype=torch.long, device=dev)
-        idfs_t = torch.as_tensor(idfs, dtype=torch.float32, device=dev)
-    total = int(np.sum(lens))
-    chunk = torch.repeat_interleave(
-        torch.arange(len(lens), device=dev), lens_t, output_size=total)
-    first = torch.cumsum(lens_t, 0) - lens_t           # output offset of each
-    pos = starts_t[chunk] + torch.arange(total, device=dev) - first[chunk]
-    tf = tf_buf[pos]
-    dl = dl_buf[pos]
-    denom = tf + k1 * (1.0 - b + b * dl * inv_avgdl)
-    imps = idfs_t[chunk] * tf * (k1 + 1.0) / torch.clamp(denom, min=1e-9)
-    # rows past n_pad land in one extra slot that is cut off
-    rows = torch.clamp(rows_buf[pos].long(), max=n_pad)
-    scores = torch.zeros((n_pad + 1,), dtype=torch.float32, device=dev)
-    return scores.index_add_(0, rows, imps)[:n_pad]
+
+class _Snapshot(NamedTuple):
+    """What a query reads, published by a build or flush in one assignment."""
+
+    rows: Optional[torch.Tensor]   # [cap] int32 row of each entry
+    tf: Optional[torch.Tensor]     # [cap] f32 term frequency
+    dl: Optional[torch.Tensor]     # [cap] f32 document length
+    nnz: int                       # live entries
+    terms: dict                    # tid -> (pieces [n, 2] int32, df)
+    n_docs: int
+    len_sum: int
+
+
+_EMPTY = _Snapshot(None, None, None, 0, {}, 0, 0)
 
 
 class BM25Index:
@@ -123,17 +129,10 @@ class BM25Index:
         self._doc_len: dict[int, int] = {}          # row -> length
         self._len_sum = 0
         # _mutate_lock serialises every mutator (add/remove/build/flush);
-        # queries take it only when they find pending work.  _buf_lock
-        # guards the device-buffer swap so queries snapshot a consistent
-        # (rows, tf, dl, segments) view.
+        # queries take it only when they find pending work, and otherwise
+        # read the published snapshot alone.
         self._mutate_lock = threading.RLock()
-        self._buf_lock = threading.Lock()
-        self._rows_buf = None
-        self._tf_buf = None
-        self._dl_buf = None
-        self._nnz = 0          # live entries in the buffers
-        self._cap = 0
-        self._term_segments: dict[int, list[tuple[int, int]]] = {}
+        self._snap = _EMPTY
         # delta since last flush: term_id -> {row: tf}
         self._delta: dict[int, dict[int, int]] = {}
         self._n_flushes = 0
@@ -197,11 +196,6 @@ class BM25Index:
     def avgdl(self) -> float:
         return (self._len_sum / self.n_docs) if self._doc_len else 1.0
 
-    def _idf(self, tid: int) -> float:
-        df = len(self._postings[tid])
-        n = max(self.n_docs, 1)
-        return math.log(1.0 + (n - df + 0.5) / (df + 0.5))
-
     def _emit_entries(self, postings: dict[int, dict[int, int]]):
         """postings → (rows, tf, dl arrays grouped by term, per-term spans)."""
         rows_parts, tf_parts = [], []
@@ -224,50 +218,54 @@ class BM25Index:
                        np.float32)
         return rows, tfs, dls, spans
 
-    def _append_device(self, rows, tfs, dls, spans) -> None:
-        """Write the entries at _nnz into NEW buffers (grown as needed) and
-        publish them; concurrent queries keep the old ones."""
-        n = len(rows)
-        need = self._nnz + _bucket_up(n, _DELTA_BUCKETS)
-        cap = max(self._cap, _DELTA_BUCKETS[0])
-        while cap < need:
-            cap *= 2
-        dev = self.device
-        new_rows = torch.zeros((cap,), dtype=torch.int32, device=dev)
-        new_tf = torch.zeros((cap,), dtype=torch.float32, device=dev)
-        new_dl = torch.zeros((cap,), dtype=torch.float32, device=dev)
-        base = self._nnz
-        if self._rows_buf is not None and base:
-            new_rows[:base] = self._rows_buf[:base]
-            new_tf[:base] = self._tf_buf[:base]
-            new_dl[:base] = self._dl_buf[:base]
-        new_rows[base:base + n] = torch.from_numpy(rows).to(dev)
-        new_tf[base:base + n] = torch.from_numpy(tfs).to(dev)
-        new_dl[base:base + n] = torch.from_numpy(dls).to(dev)
-        segments = {t: list(s) for t, s in self._term_segments.items()}
-        for tid, rel, length in spans:
-            segments.setdefault(tid, []).append((base + rel, length))
-        with self._buf_lock:
-            self._rows_buf, self._tf_buf, self._dl_buf = new_rows, new_tf, new_dl
-            self._cap = cap
-            self._nnz = base + n
-            self._term_segments = segments
+    def _publish(self, entries, *, rebuild: bool) -> None:
+        """Write the entries into NEW buffers (after the old entries unless
+        ``rebuild``, grown as needed), cut the touched terms' new segments
+        into pieces, and publish it all with the current stats; concurrent
+        queries keep the old snapshot."""
+        old = _EMPTY if rebuild else self._snap
+        terms = {} if rebuild else dict(old.terms)
+        new_rows, new_tf, new_dl = old.rows, old.tf, old.dl
+        base, n = old.nnz, 0
+        if entries is not None:
+            rows, tfs, dls, spans = entries
+            n = len(rows)
+            need = base + _bucket_up(n, _DELTA_BUCKETS)
+            cap = _DELTA_BUCKETS[0] if old.rows is None else old.rows.shape[0]
+            while cap < need:
+                cap *= 2
+            dev = self.device
+            new_rows = torch.zeros((cap,), dtype=torch.int32, device=dev)
+            new_tf = torch.zeros((cap,), dtype=torch.float32, device=dev)
+            new_dl = torch.zeros((cap,), dtype=torch.float32, device=dev)
+            if base:
+                new_rows[:base] = old.rows[:base]
+                new_tf[:base] = old.tf[:base]
+                new_dl[:base] = old.dl[:base]
+            new_rows[base:base + n] = torch.from_numpy(rows).to(dev)
+            new_tf[base:base + n] = torch.from_numpy(tfs).to(dev)
+            new_dl[base:base + n] = torch.from_numpy(dls).to(dev)
+            tids, rel, lengths = (np.array(c, np.int64) for c in zip(*spans))
+            pieces, counts = _cut(base + rel, lengths)
+            ends = np.cumsum(counts)
+            for tid, lo, hi in zip(tids.tolist(), (ends - counts).tolist(),
+                                   ends.tolist()):
+                p = pieces[lo:hi]
+                prev = terms.get(tid)
+                if prev is not None:
+                    p = np.concatenate([prev[0], p])
+                terms[tid] = (p, len(self._postings[tid]))
+        self._snap = _Snapshot(new_rows, new_tf, new_dl, base + n, terms,
+                               len(self._doc_len), self._len_sum)
 
     def build(self) -> None:
         """Full rebuild: one contiguous segment per term.  Concurrent
-        queries see either the pre-build state or (briefly) an empty
-        snapshot — never a torn one."""
+        queries see the state before the build until it publishes."""
         with self._mutate_lock:
-            with self._buf_lock:
-                self._rows_buf = self._tf_buf = self._dl_buf = None
-                self._cap = 0
-                self._nnz = 0
-                self._term_segments = {}
             self._delta.clear()
-            entries = self._emit_entries(
-                {tid: p for tid, p in enumerate(self._postings)})
-            if entries is not None:
-                self._append_device(*entries)
+            self._publish(self._emit_entries(
+                {tid: p for tid, p in enumerate(self._postings)}),
+                rebuild=True)
             self._n_flushes = 0
             self._needs_rebuild = False
             self.full_builds += 1
@@ -276,20 +274,22 @@ class BM25Index:
         with self._mutate_lock:
             entries = self._emit_entries(self._delta)
             self._delta.clear()
-            if entries is None:
-                return
-            self._append_device(*entries)
-            self._n_flushes += 1
-            self.delta_flushes += 1
+            self._publish(entries, rebuild=False)
+            if entries is not None:
+                self._n_flushes += 1
+                self.delta_flushes += 1
 
     def _ensure_built(self) -> None:
+        snap = self._snap
         if not (self._needs_rebuild or self._n_flushes >= REBUILD_FLUSHES
-                or self._delta):
+                or self._delta or snap.n_docs != len(self._doc_len)
+                or snap.len_sum != self._len_sum):
             return  # steady state: no locking on the query path
         with self._mutate_lock:  # one winner does the work; losers re-check
             if self._needs_rebuild or self._n_flushes >= REBUILD_FLUSHES:
                 self.build()
-            elif self._delta:
+            else:
+                # the delta, or stats moved by documents with no terms
                 self._flush_delta()
 
     # ------------------------------------------------------------------ query
@@ -297,39 +297,93 @@ class BM25Index:
         return analyze(query, stemming=self.stemming)
 
     def scores(self, query: str, n_pad: int) -> torch.Tensor:
-        """Dense [n_pad] BM25 scores for the query (0 where no term hits)."""
-        with span("bm25.scores"):
+        """Dense [n_pad] BM25 scores for the query (0 where no term hits):
+        ``scores_batch`` of the one query."""
+        return self._score([query], n_pad, 1, "single")[0][0]
+
+    def scores_batch(self, queries: Sequence[str], n_pad: int, *,
+                     n_rows: Optional[int] = None):
+        """BM25 scores of a batch of queries in one pass: one work list,
+        one copy to the device, one scatter.
+
+        Returns (scores [n_rows, n_pad] f32, hit [n_rows] bool) on the
+        index's device; row i < len(queries) holds query i's scores and
+        ``hit[i]`` whether any of its postings landed below n_pad (its best
+        score is above 0); rows past the queries (``n_rows``, default
+        ``len(queries)``, pads a batch) are zero."""
+        queries = list(queries)
+        n_rows = len(queries) if n_rows is None else n_rows
+        if n_rows < len(queries):
+            raise ValueError(f"scores_batch: n_rows {n_rows} < "
+                             f"{len(queries)} queries")
+        return self._score(queries, n_pad, n_rows, "batch")
+
+    def _score(self, queries: list, n_pad: int, n_rows: int, path: str):
+        with span("bm25.scores") as sp:
             self._ensure_built()
-            with self._buf_lock:  # consistent snapshot vs concurrent ingest
-                rows_buf, tf_buf, dl_buf = (
-                    self._rows_buf, self._tf_buf, self._dl_buf)
-                segments = self._term_segments
+            snap = self._snap
             with span("bm25.analyze"):
-                terms = set(self.query_terms(query))
+                term_sets = [set(self.query_terms(q)) for q in queries]
             with span("bm25.worklist"):
-                starts, lens, idfs = [], [], []
-                for t in terms:
-                    tid = self._term_ids.get(t)
-                    if tid is None:
-                        continue
-                    idf = self._idf(tid)
-                    for start, length in segments.get(tid, ()):
-                        while length > 0:
-                            step = min(length, CHUNK)
-                            starts.append(start)
-                            lens.append(step)
-                            idfs.append(idf)
-                            start += step
-                            length -= step
-            if not starts or rows_buf is None:
-                return torch.zeros((n_pad,), dtype=torch.float32,
-                                   device=self.device)
+                work = self._worklist(snap, term_sets)
+            METRICS.inc("archi_bm25_scored_queries_total", len(queries),
+                        labels={"path": path})
+            if sp.recording:
+                sp.set(queries=len(queries), pieces=len(work),
+                       entries=int(work[:, LENGTH].sum()))
+            if snap.rows is None:   # no postings yet
+                return (torch.zeros((n_rows, n_pad), dtype=torch.float32,
+                                    device=self.device),
+                        torch.zeros((n_rows,), dtype=torch.bool,
+                                    device=self.device))
+            with span("bm25.upload"):
+                work_t = self._upload(work)
             with span("bm25.scatter"):
-                return scatter_scores(
-                    rows_buf, tf_buf, dl_buf, starts, lens,
-                    np.asarray(idfs, np.float32),
-                    float(np.float32(1.0 / max(self.avgdl, 1e-9))),
-                    n_pad=n_pad, k1=self.k1, b=self.b)
+                avgdl = snap.len_sum / snap.n_docs if snap.n_docs else 1.0
+                return bm25_scatter(
+                    snap.rows, snap.tf, snap.dl, work_t,
+                    float(np.float32(1.0 / max(avgdl, 1e-9))),
+                    n_pad=n_pad, n_rows=n_rows, k1=self.k1, b=self.b)
+
+    def _worklist(self, snap: _Snapshot, term_sets) -> np.ndarray:
+        """[W, 4] int32 work list (query, start, length, the bits of the
+        f32 idf) over the pieces of every query's terms; each idf computed
+        once a batch, from the snapshot's counts."""
+        n = max(snap.n_docs, 1)
+        idf_of_df: dict[int, float] = {}
+        parts, owners, weights = [], [], []
+        for qi, terms in enumerate(term_sets):
+            for t in terms:
+                entry = snap.terms.get(self._term_ids.get(t))
+                if entry is None:
+                    continue
+                pieces, df = entry
+                idf = idf_of_df.get(df)
+                if idf is None:
+                    idf = idf_of_df[df] = math.log(
+                        1.0 + (n - df + 0.5) / (df + 0.5))
+                parts.append(pieces)
+                owners.append(qi)
+                weights.append(idf)
+        if not parts:
+            return np.zeros((0, 4), np.int32)
+        counts = [len(p) for p in parts]
+        work = np.empty((sum(counts), 4), np.int32)
+        work[:, QUERY] = np.repeat(owners, counts)
+        work[:, START:LENGTH + 1] = np.concatenate(parts)
+        work[:, IDF] = np.repeat(np.asarray(weights, np.float32),
+                                 counts).view(np.int32)
+        return work
+
+    def _upload(self, work: np.ndarray) -> torch.Tensor:
+        """The work list on the device.  On CUDA one copy from pinned
+        memory that does not wait for the stream; PyTorch's pinned-memory
+        cache keeps the buffer from reuse until the copy has run."""
+        if self.device.type != "cuda" or not len(work):
+            return torch.from_numpy(work).to(self.device)
+        host = torch.empty(work.shape, dtype=torch.int32, pin_memory=True)
+        host.numpy()[...] = work
+        return host.to(self.device, non_blocking=True)
 
     def topk(self, query: str, n_pad: int, k: int = 10, *, alive_bias=None):
         """BM25-only ranking (vals, rows); rows with no hits score 0.  Equal

@@ -43,6 +43,18 @@ BIAS_BUDGET_BYTES = 1 << 30
 _logger = logging.getLogger(__name__)
 
 
+def _to_host(t: torch.Tensor):
+    """(a host copy of t, an event to wait on before reading it or None):
+    from a CUDA tensor the copy goes to pinned memory behind the work
+    queued so far, without waiting for it."""
+    if t.device.type != "cuda":
+        return t.cpu(), None
+    host = t.to("cpu", non_blocking=True)
+    ready = torch.cuda.Event()
+    ready.record(torch.cuda.current_stream(t.device))
+    return host, ready
+
+
 class TorchVectorStore:
     def __init__(
         self,
@@ -385,32 +397,35 @@ class TorchVectorStore:
             return out
         METRICS.inc("archi_engine_queries", labels={"kind": "hybrid"},
                     value=len(queries))
+        nb = len(queries)
+        # the batch is padded to a power of two with zero queries and zero
+        # bias rows; their rows of the result are never returned
+        bucket = next_pow2(nb)
         with span("store.bm25"):
-            bm = torch.stack([self.bm25.scores(q, cap) for q in queries])
-        with span("store.fallback_test", wait=True):
-            bm_max = bm.max(dim=1).values.cpu().numpy()
+            bm, hit = self.bm25.scores_batch(queries, cap, n_rows=bucket)
+            # the flags come back behind the scatter: read after the scan,
+            # they wait for nothing queued since
+            hit, hit_ready = _to_host(hit[:nb])
         # embed as QUERIES (instruction prefixes apply to queries only)
         with span("store.embed"):
             embs = self._embed_queries(queries)
         with span("store.filter"):
             fm = self._filter_mask(filter, enabled_ids)
-        nb = len(queries)
         with span("store.scan"):
-            # pad the batch to a power of two with zero queries and zero
-            # bias; their rows of the result are never returned
-            bucket = next_pow2(nb)
             if bucket > nb:
                 embs = np.concatenate(
                     [embs, np.zeros((bucket - nb, embs.shape[1]), np.float32)])
-                bm = torch.cat([bm, bm.new_zeros((bucket - nb, bm.shape[1]))])
             ids, vals, rows = self.index.search(
                 embs, k=k, filter_mask=fm,
                 bias=bm * (bm25_weight / max(semantic_weight, 1e-9)))
         with span("store.results"):
+            if hit_ready is not None:
+                hit_ready.synchronize()
+            hit = hit.numpy()
             out = []
             for b in range(nb):
                 results = self._rows_to_results(rows[b], vals[b])
-                if bm_max[b] <= 0.0:
+                if not hit[b]:
                     # semantic fallback: report UNSCALED cosine scores when
                     # the lexical side matched nothing
                     out.append(results)

@@ -14,7 +14,8 @@ take).
 from __future__ import annotations
 
 LAUNCHES: dict[str, int] = {"fused_topk": 0, "encoder_attention": 0,
-                             "adc_scores": 0, "adc_scores_lut16": 0}
+                             "adc_scores": 0, "adc_scores_lut16": 0,
+                             "bm25_scatter": 0}
 ROUTE_LAUNCHES: dict[str, int] = {
     "fused_topk:tensor_core": 0, "fused_topk:cuda_core": 0,
     "encoder_attention:tensor_core": 0, "encoder_attention:cuda_core": 0,

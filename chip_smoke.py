@@ -16,6 +16,10 @@ Phases (each fails the run with a non-zero exit):
      index; MiniLM-L6's attention at the ingest and query buckets) and a
      few more, and time kernel (CUDA graph and CUDA events), plain version
      and a one-call PyTorch yardstick (``torch._int_mm`` for int8 top-k);
+     the BM25 scatter at the hybrid benchmark cell's sizes (postings of
+     278,528 chunks of a 100,000-word Zipf vocabulary, a micro-batch of 32
+     queries of ~10.6 words, one of 1, and a n_pad that drops rows),
+     timed against its byte bound and its plain version;
   3. run the main path through ``TorchVectorStore`` over a MiniLM-L6
      ``TorchEmbedder`` at full width (random weights from a seed): ingest
      documents through the encoder, fill the index to 2^20 rows, run
@@ -43,7 +47,8 @@ Phases (each fails the run with a non-zero exit):
      ``build_vectorstore``: (a) phase 3's encoder written as a local HF
      snapshot and its store as ``engine_checkpoint``, restored with
      micro-batching at the defaults and served to 64 concurrent clients
-     (512 hybrid requests, each held against the direct path), then the
+     (512 hybrid requests, each held against the direct path; each
+     micro-batch's BM25 one ``bm25_scatter`` launch), then the
      top 50 hybrid candidates of 8 queries reranked by ``MaxSimReranker``
      (against the same weights on the CPU); (b) the same checkpoint restored
      as a hot-tail index, 1024 documents ingested into the tail and merged
@@ -336,6 +341,17 @@ REFOLD_B, REFOLD_S = 256, 256                        # 12i
 REFOLD_STEPS, REFOLD_TRIALS = 8, 2   # 12i: cut from 16 x 3 (int8 130 ms)
 #: where the service phase runs: the card (the CPU only in a rehearsal of
 #: the phase at small sizes)
+# phase 2's BM25 scatter at the hybrid cell's sizes (ragbench's
+# minilm-l6.trec-covid: 171,332 documents of 160.8 words in ~278k chunks of
+# ~99 words, a 100,000-word Zipf vocabulary whose 33 most frequent words
+# are the analyzer's stopwords) and micro-batch (32 queries of ~10.6 words)
+BM25_ROWS = 278_528
+BM25_CAPACITY = 1 << 19
+BM25_WORDS = 99
+BM25_VOCAB = 100_000
+BM25_STOPWORDS = 33
+BM25_QUERIES = 32
+BM25_QUERY_WORDS = 10.6
 DEV = "cuda"
 ROOT = os.path.dirname(os.path.abspath(__file__))
 SERVICE_TMP = os.path.join(ROOT, ".chip_tmp", "service")
@@ -696,6 +712,105 @@ def adc_case(name, m, g, s, packed, timed=False, ksub=256):
             f"{res['ms_cold']:.4f}, events {res['ms_events']:.4f}) plain "
             f"{res['plain_ms']:.4f} library "
             f"{res['library_ms']:.4f} (err {lib_err:.3g}) bound "
+            f"{res['bound_ms']:.4f} ({res['bound_by']})")
+    return res
+
+
+def bm25_case(name, rows, n_pad, n_queries, timed=False):
+    """The BM25 scatter kernel against its plain version over postings of
+    ``rows`` chunks of Zipf words (stopwords dropped) for a micro-batch of
+    ``n_queries`` queries; returns a result dict."""
+    import numpy as np
+    import torch
+
+    from archi_tpu_torch.engine.bm25 import _cut
+    from archi_tpu_torch.ops import LAUNCHES
+    from archi_tpu_torch.ops.bm25 import (IDF, LENGTH, QUERY, START,
+                                          bm25_scatter, plain_bm25_scatter)
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device="cuda").manual_seed(SEED + rows)
+    cdf = torch.cumsum(1.0 / torch.arange(1, BM25_VOCAB + 1, device=dev,
+                                          dtype=torch.float64), 0)
+    cdf /= cdf[-1].clone()
+
+    def words(n):
+        u = torch.rand(n, device=dev, dtype=torch.float64, generator=g)
+        return torch.searchsorted(cdf, u).clamp_(max=BM25_VOCAB - 1)
+
+    w = words(rows * BM25_WORDS)
+    doc = torch.arange(rows, device=dev).repeat_interleave(BM25_WORDS)
+    keep = w >= BM25_STOPWORDS
+    w, doc = w[keep], doc[keep]
+    dl = torch.bincount(doc, minlength=rows).float()
+    key, tf = torch.unique(w * rows + doc, return_counts=True)  # term-major
+    del w, doc, keep
+    row = key % rows
+    rows_buf, tf_buf, dl_buf = row.int(), tf.float(), dl[row]
+    tids, df = torch.unique_consecutive(key // rows, return_counts=True)
+    del key, tf, row
+    seg = {t: (s_, c) for t, s_, c in zip(
+        tids.tolist(), (torch.cumsum(df, 0) - df).tolist(), df.tolist())}
+    rng = np.random.default_rng(SEED + n_queries)
+    starts, lengths, owners, idfs = [], [], [], []
+    for qi in range(n_queries):
+        n_words = max(1, round(rng.lognormal(math.log(BM25_QUERY_WORDS),
+                                             0.35)))
+        for t in set(words(n_words).tolist()):
+            if t in seg:    # stopword ranks have no postings
+                s_, c = seg[t]
+                starts.append(s_)
+                lengths.append(c)
+                owners.append(qi)
+                idfs.append(math.log(1.0 + (rows - c + 0.5) / (c + 0.5)))
+    pieces, counts = _cut(np.array(starts, np.int64),
+                          np.array(lengths, np.int64))
+    work = np.empty((len(pieces), 4), np.int32)
+    work[:, QUERY] = np.repeat(owners, counts)
+    work[:, START:LENGTH + 1] = pieces
+    work[:, IDF] = np.repeat(np.asarray(idfs, np.float32),
+                             counts).view(np.int32)
+    work_t = torch.from_numpy(work).to(dev)
+    entries = int(work[:, LENGTH].sum())
+    args = (rows_buf, tf_buf, dl_buf, work_t,
+            float(np.float32(1.0 / float(dl.mean()))))
+    kw = {"n_pad": n_pad, "n_rows": n_queries, "k1": 1.2, "b": 0.75}
+    before = LAUNCHES["bm25_scatter"]
+    out, hit = bm25_scatter(*args, **kw)
+    ref, ref_hit = plain_bm25_scatter(*args, **kw)
+    torch.cuda.synchronize()
+    # f32 atomics add a row's terms in no fixed order: a few ulps
+    err = float(((out - ref).abs() / ref.abs().clamp(min=1.0)).max())
+    tol = 1e-5
+    check(LAUNCHES["bm25_scatter"] == before + 1 and bool(
+        torch.isfinite(out).all()) and err <= tol
+        and torch.equal(hit, ref_hit)
+        and torch.equal(hit, out.max(dim=1).values > 0),
+        f"{name}: max_rel_err {err:.3g} (tol {tol}), hit "
+        f"{hit.tolist()} against {ref_hit.tolist()}")
+    res = {"case": name, "rows": rows, "n_pad": n_pad, "queries": n_queries,
+           "postings": int(rows_buf.numel()), "pieces": len(work),
+           "entries": entries, "hits": int(hit.sum()), "max_abs_err": err,
+           "tol": tol}
+    log(f"  {name}: {entries} entries in {len(work)} pieces of "
+        f"{rows_buf.numel()} postings, max_rel_err {err:.3g} (tol {tol}) ok")
+    if timed:
+        # device time of a call (zero fill and launch) from a CUDA graph,
+        # CUDA events over the wrapper, and the fill alone
+        res["ms"] = graph_ms(lambda: bm25_scatter(*args, **kw))
+        res["ms_events"] = cuda_ms(lambda: bm25_scatter(*args, **kw))
+        res["fill_ms"] = graph_ms(lambda: torch.zeros(
+            n_queries * n_pad, dtype=torch.float32, device=dev))
+        res["plain_ms"] = cuda_ms(lambda: plain_bm25_scatter(*args, **kw),
+                                  iters=3, warmup=1)
+        res["library_ms"] = None
+        # the entries' rows, tf and dl and the work list read once, the
+        # [queries, n_pad] scores written once
+        nbytes = entries * 12 + len(work) * 16 + n_queries * n_pad * 4
+        res["bound_ms"], res["bound_by"] = bound(nbytes, 10.0 * entries,
+                                                 "float32")
+        log(f"    ms {res['ms']:.4f} (events {res['ms_events']:.4f}, fill "
+            f"{res['fill_ms']:.4f}) plain {res['plain_ms']:.4f} bound "
             f"{res['bound_ms']:.4f} ({res['bound_by']})")
     return res
 
@@ -1503,14 +1618,31 @@ def service_flat(results, docs, vocab):
 
     fb0 = topk_fallbacks()
     reset_launches()
+
+    def scored(path):
+        return METRICS.counter_value("archi_bm25_scored_queries_total",
+                                     {"path": path})
+
     b0 = METRICS.counter_value("archi_micro_batches_total")
     r0 = METRICS.counter_value("archi_micro_batched_requests_total")
+    s0 = {path: scored(path) for path in ("batch", "single")}
     got, lat, wall = run_clients(st, reqs)
     sync()
     launches, routes = dict(LAUNCHES), dict(ROUTE_LAUNCHES)
     batches = METRICS.counter_value("archi_micro_batches_total") - b0
     served = METRICS.counter_value("archi_micro_batched_requests_total") - r0
     check_routes("7a", launches, routes)
+    # each micro-batch's BM25 is one pass: one bm25_scatter launch, none
+    # for a batch of BM25-miss queries alone
+    misses = sum(q == miss for calls in reqs for _kind, q in calls)
+    scatters = launches["bm25_scatter"]
+    check(batches - misses <= scatters <= batches
+          and scored("batch") - s0["batch"] == n_req
+          and scored("single") == s0["single"],
+          f"7a: {scatters} bm25_scatter launches for {batches} batches "
+          f"({misses} miss queries); BM25 scored "
+          f"{scored('batch') - s0['batch']} queries batched, "
+          f"{scored('single') - s0['single']} alone, of {n_req}")
     check(topk_fallbacks() == fb0, "7a: top-k fell back")
 
     # the same requests one at a time from one thread, the direct path
@@ -1525,6 +1657,7 @@ def service_flat(results, docs, vocab):
           f"7a: {served} requests in {batches} batches")
     out["flat"] = {"requests": n_req, "batches": batches,
                    "mean_batch": served / batches,
+                   "bm25_scatter_launches": scatters,
                    "qps_micro_batched": n_req / wall,
                    "qps_request_at_a_time": n_req / seq_wall,
                    **latency_ms(lat)}
@@ -5054,8 +5187,18 @@ def main() -> int:
         adc_case("adc4_g4_m96_s98304", 96, 4, 16 * 3 * 512 * 4, True),
         adc_case("adc4_g2_m96_s98304", 96, 2, 32 * 3 * 512 * 2, True),
     ]
+    bm25 = [
+        # the hybrid cell's postings and micro-batch, its index capacity
+        bm25_case("bm25_b32_trec_covid", BM25_ROWS, BM25_CAPACITY,
+                  BM25_QUERIES, timed=True),
+        # one query; a n_pad below the rows, whose postings are dropped
+        bm25_case("bm25_b1_trec_covid", BM25_ROWS, BM25_CAPACITY, 1),
+        bm25_case("bm25_b32_dropped_rows", BM25_ROWS, BM25_ROWS - 4099,
+                  BM25_QUERIES),
+    ]
     results["topk"], results["attention"] = topk, attn
     results["adc_scores"], results["adc_scores_lut16"] = adc8, adc4
+    results["bm25_scatter"] = bm25
     torch.cuda.empty_cache()
 
     phase_log("phase 3: main path (MiniLM-L6 TorchEmbedder -> "
@@ -5174,6 +5317,8 @@ def main() -> int:
               "archi_tpu/ops/pallas_adc.py:58", adc8[0], adc8),
         entry("adc_scores_lut16", "archi_tpu_torch/csrc/adc.cu",
               "archi_tpu/ops/pallas_adc.py:112", adc4[0], adc4),
+        entry("bm25_scatter", "archi_tpu_torch/csrc/bm25_scatter.cu",
+              "archi_tpu/engine/bm25.py:103", bm25[0], bm25),
     ]
     log(card)
     print(json.dumps({"kernels": kernels}))

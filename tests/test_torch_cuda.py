@@ -877,3 +877,77 @@ def test_evaluate_fixture_on_the_card_matches_the_cpu(dev, tmp_path):
     assert got == want and got["recall_at_k"] >= 0.99
     assert [q["sources_metadata"] for q in runs[0]["questions"].values()] \
         == [q["sources_metadata"] for q in runs[1]["questions"].values()]
+
+
+def _bm25_work(rng, cap, queries, pieces):
+    """A work list of random pieces (query, start, length <= 2048, idf);
+    the last query has none."""
+    work = np.empty((pieces, 4), np.int32)
+    work[:, 0] = rng.integers(0, queries - 1, pieces)
+    lengths = rng.integers(1, 2049, pieces)
+    work[:, 1] = rng.integers(0, cap - lengths + 1)
+    work[:, 2] = lengths
+    work[:, 3] = rng.uniform(0.1, 9.0, pieces).astype(np.float32).view(np.int32)
+    return torch.from_numpy(work)
+
+
+@pytest.mark.parametrize("n_pad", [5000, 3001])   # every row; rows dropped
+def test_bm25_scatter_matches_plain(dev, n_pad):
+    """Pieces of random postings (rows repeat inside a piece, so atomics
+    meet) scored by the kernel equal the plain version on the CPU up to
+    the order of the f32 sums; rows >= n_pad are dropped; the query with
+    no pieces and the padding row stay zero."""
+    from archi_tpu_torch.ops.bm25 import bm25_scatter, plain_bm25_scatter
+
+    rng = np.random.default_rng(n_pad)
+    cap = 40_000
+    rows = torch.from_numpy(rng.integers(0, 5000, cap).astype(np.int32))
+    tf = torch.from_numpy(rng.integers(1, 6, cap).astype(np.float32))
+    dl = torch.from_numpy(rng.integers(1, 300, cap).astype(np.float32))
+    work = _bm25_work(rng, cap, 8, 96)
+    kw = {"n_pad": n_pad, "n_rows": 9, "k1": 1.2, "b": 0.75}
+    before = LAUNCHES["bm25_scatter"]
+    out, hit = bm25_scatter(rows.to(dev), tf.to(dev), dl.to(dev),
+                            work.to(dev), 1 / 97.5, **kw)
+    assert LAUNCHES["bm25_scatter"] == before + 1
+    ref, ref_hit = plain_bm25_scatter(rows, tf, dl, work, 1 / 97.5, **kw)
+    torch.testing.assert_close(out.cpu(), ref, rtol=1e-5, atol=1e-5)
+    assert torch.equal(hit.cpu(), ref_hit)
+    assert hit[:7].any() and not hit[7:].any()
+    assert not out[7:].any()
+
+
+def test_bm25_scatter_empty_work_launches_nothing(dev):
+    from archi_tpu_torch.ops.bm25 import bm25_scatter
+
+    buf = torch.zeros(16, device=dev)
+    before = dict(LAUNCHES)
+    out, hit = bm25_scatter(buf.int(), buf, buf,
+                            torch.empty((0, 4), dtype=torch.int32, device=dev),
+                            1.0, n_pad=32, n_rows=4, k1=1.2, b=0.75)
+    assert LAUNCHES == before
+    assert out.shape == (4, 32) and not out.any() and not hit.any()
+
+
+def test_bm25_index_on_the_card_matches_the_cpu(dev):
+    """``BM25Index.scores_batch`` on the card (one copy of the work list
+    from pinned memory, one fill, one launch) against the same index on the
+    CPU, through flushes and a rebuild."""
+    from archi_tpu_torch.engine.bm25 import BM25Index
+
+    rng = np.random.default_rng(5)
+    vocab = [f"w{i}" for i in range(300)]
+    texts = [" ".join(rng.choice(vocab, rng.integers(3, 40),
+                                 p=None)) for _ in range(6000)]
+    queries = [" ".join(rng.choice(vocab, 8)) for _ in range(32)] + ["zzz"]
+    card, cpu = BM25Index(device="cuda"), BM25Index(device="cpu")
+    for lo in range(0, len(texts), 1500):
+        for idx in (card, cpu):
+            idx.add(list(range(lo, lo + 1500)), texts[lo:lo + 1500])
+            idx.scores("w1", 8192)
+    before = LAUNCHES["bm25_scatter"]
+    got, hit = card.scores_batch(queries, 8192, n_rows=64)
+    assert LAUNCHES["bm25_scatter"] == before + 1
+    want, want_hit = cpu.scores_batch(queries, 8192, n_rows=64)
+    torch.testing.assert_close(got.cpu(), want, rtol=1e-5, atol=1e-5)
+    assert torch.equal(hit.cpu(), want_hit) and not hit[len(queries) - 1:].any()

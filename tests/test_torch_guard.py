@@ -512,15 +512,24 @@ def test_cpu_wrappers_count_no_launches():
     codes = torch.from_numpy(rng.integers(0, 16, (4, 33)).astype(np.uint8))
     assert adc_scores(luts, codes).shape == (2, 33)
     assert adc_scores_lut16(luts, pack_nibbles(codes.t()).t()).shape == (2, 33)
+    from archi_tpu_torch.ops.bm25 import bm25_scatter
+
+    work = torch.tensor([[0, 0, 3, 0]], dtype=torch.int32)
+    work[:, 3] = torch.tensor([1.5]).view(torch.int32)
+    scores, hit = bm25_scatter(torch.arange(4, dtype=torch.int32),
+                               torch.ones(4), torch.ones(4), work, 1.0,
+                               n_pad=8, n_rows=2, k1=1.2, b=0.75)
+    assert scores.shape == (2, 8) and hit.tolist() == [True, False]
     assert set(LAUNCHES) == {"fused_topk", "encoder_attention", "adc_scores",
-                             "adc_scores_lut16"}
+                             "adc_scores_lut16", "bm25_scatter"}
     assert LAUNCHES == before and ROUTE_LAUNCHES == routes_before
 
 
 def test_build_finds_sources_and_needs_nvcc(monkeypatch, tmp_path):
     from archi_tpu_torch.ops import _build
 
-    assert _build.sources() == ["adc", "encoder_attention", "fused_topk"]
+    assert _build.sources() == ["adc", "bm25_scatter", "encoder_attention",
+                                "fused_topk"]
     assert "arch=compute_90a,code=sm_90a" in _build.NVCC_FLAGS
     monkeypatch.setattr(_build, "BUILD_DIR", str(tmp_path))
     assert _build._stale("fused_topk")           # nothing built yet

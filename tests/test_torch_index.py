@@ -225,6 +225,146 @@ def test_bm25_json_cross_loads(tmp_path):
         np.testing.assert_allclose(_scores(t2, q), _scores(j2, q), rtol=1e-6)
 
 
+def _long_corpus():
+    n = tbm25.CHUNK * 2 + 37          # "common" spans three pieces
+    return [f"common word{i % 7}" for i in range(n)]
+
+
+def _fill_at_once(idx, texts):
+    idx.add(list(range(len(texts))), texts)
+
+
+def _fill_with_flushes(idx, texts):
+    """One delta flush per document (a query between adds)."""
+    for i, text in enumerate(texts):
+        idx.add([i], [text])
+        idx.scores("fox", 16)
+
+
+def _fill_then_remove(idx, texts):
+    _fill_at_once(idx, texts)
+    idx.scores("fox", 16)
+    idx.remove([0, 5])
+
+
+#: (corpus, how it is filled, queries, n_pad): empty, unknown and repeated
+#: terms; postings longer than two pieces; deltas; removes; one query; a
+#: n_pad below the rows, whose postings are dropped
+BATCH_CASES = {
+    "mixed": (CORPUS, _fill_at_once,
+              QUERIES + ["", "fox fox brown fox", "zzz qqq"], 16),
+    "long_postings": (_long_corpus(), _fill_at_once,
+                      ["common word3", "word1", "zzz", "common"],
+                      tbm25.CHUNK * 2 + 40),
+    "after_flushes": (CORPUS, _fill_with_flushes, QUERIES, 16),
+    "after_remove": (CORPUS, _fill_then_remove, QUERIES, 16),
+    "one_query": (CORPUS, _fill_at_once, ["lazy dog sleeps"], 16),
+    "rows_dropped": (CORPUS, _fill_at_once, QUERIES, 5),
+}
+
+
+@pytest.mark.parametrize("case", sorted(BATCH_CASES))
+def test_bm25_scores_batch_rows_match_jax(case):
+    """Each row of one batched pass equals the JAX package's scores of its
+    query; ``hit`` is "the row's best score is above 0"; the padding rows
+    are zero."""
+    texts, fill, queries, n_pad = BATCH_CASES[case]
+    jidx, tidx = _bm25_pair()
+    fill(jidx, texts)
+    fill(tidx, texts)
+    scores, hit = tidx.scores_batch(queries, n_pad,
+                                    n_rows=len(queries) + 3)
+    assert scores.shape == (len(queries) + 3, n_pad)
+    assert scores.dtype == torch.float32 and hit.dtype == torch.bool
+    for row, q in zip(scores.numpy(), queries):
+        np.testing.assert_allclose(row, _scores(jidx, q, n_pad), rtol=1e-6,
+                                   atol=0)
+    assert torch.equal(hit, scores.max(dim=1).values > 0)
+    assert not scores[len(queries):].any()
+    if case == "rows_dropped":   # postings of rows >= n_pad were there
+        full, _ = tidx.scores_batch(queries, 16)
+        assert (full[:, n_pad:] > 0).any()
+        torch.testing.assert_close(full[:, :n_pad], scores[:len(queries)],
+                                   rtol=1e-6, atol=0)
+    else:
+        assert hit[:len(queries)].any() and not hit[len(queries):].any()
+
+
+def test_bm25_scores_is_the_batch_of_one():
+    _jidx, tidx = _bm25_pair()
+    _fill_at_once(tidx, CORPUS)
+    batch, _ = tidx.scores_batch(QUERIES, 16)
+    for q, row in zip(QUERIES, batch):
+        assert torch.equal(tidx.scores(q, 16), row)
+    with pytest.raises(ValueError, match="n_rows"):
+        tidx.scores_batch(QUERIES, 16, n_rows=2)
+
+
+def test_bm25_batches_see_whole_snapshots_while_ingest_flushes():
+    """Batches scored while another thread adds documents and flushes them
+    each equal the scores of the index after some whole number of the
+    writer's adds: buffers, pieces, df and document stats of one state."""
+    import sys
+    import threading
+    import time
+
+    rng = np.random.default_rng(3)
+    words = [f"w{i}" for i in range(12)]
+    docs = [" ".join(rng.choice(words, rng.integers(1, 6))) for _ in range(96)]
+    steps = [docs[:16]] + [docs[16 + 8 * i:24 + 8 * i] for i in range(10)]
+    queries = ["w1 w2", "w3", "w4 w5 w6", "unknown", "w0 w7 w11"]
+    idx = tbm25.BM25Index(device="cpu")
+    idx.add(list(range(16)), steps[0])
+    seen, errors, stop = [], [], threading.Event()
+
+    def writer():
+        try:
+            row = 16
+            for batch in steps[1:]:
+                # let the readers score between the steps too
+                mark, deadline = len(seen), time.monotonic() + 5
+                while len(seen) <= mark and time.monotonic() < deadline:
+                    time.sleep(1e-4)
+                idx.add(list(range(row, row + len(batch))), batch)
+                row += len(batch)
+                idx._ensure_built()
+        except Exception as e:  # noqa: BLE001 — re-raised by the test
+            errors.append(e)
+        finally:
+            stop.set()
+
+    def reader():
+        try:
+            while not stop.is_set():
+                seen.append(idx.scores_batch(queries, 128)[0].numpy())
+        except Exception as e:  # noqa: BLE001 — re-raised by the test
+            errors.append(e)
+
+    old = sys.getswitchinterval()
+    sys.setswitchinterval(1e-5)
+    try:
+        threads = [threading.Thread(target=writer)] + [
+            threading.Thread(target=reader) for _ in range(3)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=60)
+        assert not any(t.is_alive() for t in threads)
+    finally:
+        sys.setswitchinterval(old)
+    assert not errors, errors
+    assert len(seen) >= len(steps)
+    states = []
+    for k in range(1, len(steps) + 1):
+        fresh = tbm25.BM25Index(device="cpu")
+        texts = [t for batch in steps[:k] for t in batch]
+        fresh.add(list(range(len(texts))), texts)
+        states.append(fresh.scores_batch(queries, 128)[0].numpy())
+    for got in seen:
+        assert any(np.allclose(got, want, rtol=1e-6, atol=0)
+                   for want in states)
+
+
 # ------------------------------------------------- analyser and tokenizer
 TEXTS = CORPUS + [
     "Ünïcödé — “quotes”, em–dashes… and €uros; 中文字符 mixed in",

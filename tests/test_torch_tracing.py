@@ -63,12 +63,10 @@ TREE["hybrid"] = TREE["semantic"] | {
     ("bm25.scores", "store.bm25"),
     ("bm25.analyze", "bm25.scores"),
     ("bm25.worklist", "bm25.scores"),
+    ("bm25.upload", "bm25.scores"),
     ("bm25.scatter", "bm25.scores"),
-    ("bm25.upload", "bm25.scatter"),
-    ("store.fallback_test", "batcher.batch"),
 }
-WAITS = {"store.fallback_test", "bm25.upload", "embed.upload",
-         "embed.readback", "index.upload", "index.readback"}
+WAITS = {"embed.upload", "embed.readback", "index.upload", "index.readback"}
 
 
 @pytest.fixture(autouse=True)
@@ -300,8 +298,10 @@ def test_batch_span_tree(store, kind):
                 assert not by_id[p].wait
                 p = by_id[p].parent
     if kind == "hybrid":
-        assert len([s for s in recs if s.name == "bm25.scores"]) \
-            == len(QUERIES)
+        # one pass scores the micro-batch
+        (scores,) = [s for s in recs if s.name == "bm25.scores"]
+        assert scores.attrs["queries"] == len(QUERIES)
+        assert 0 < scores.attrs["pieces"] <= scores.attrs["entries"]
     (dispatch,) = [s for s in recs if s.name == "index.dispatch"]
     assert dispatch.attrs == {"batch": 4, "live": 40,
                               "bias": "per_query" if kind == "hybrid"

@@ -122,6 +122,48 @@ def test_batch_forms_with_filters(stores, kw):
                     d.metadata["resource_hash"] == "h2"
 
 
+#: micro-batches of queries BM25 matches and queries it does not (B = 1;
+#: 3 padded to 4; 5 padded to 8)
+MIXES = {"one_matched": ["gpu kernel"], "one_unmatched": ["zzz qqq"],
+         "mixed": ["zzz qqq", "gpu kernel", "unknown words qqq"],
+         "mostly_matched": QUERIES}
+
+
+@pytest.mark.parametrize("mix", sorted(MIXES))
+def test_hybrid_batch_equals_the_single_path(stores, mix):
+    """One batched BM25 pass gives each query what the direct single-query
+    path gives it; a query BM25 does not match reports the unscaled cosine
+    of the semantic search."""
+    _js, ts = stores
+    queries = MIXES[mix]
+    got = ts.hybrid_search_batch(queries, k=4)
+    assert len(got) == len(queries)
+    for g, q in zip(got, queries):
+        assert_same(g, ts._hybrid_search_impl(q, k=4))
+        if float(ts.bm25.scores(q, ts.index.capacity).max()) <= 0.0:
+            assert_same(g, ts._similarity_search_impl(q, k=4))
+
+
+def test_bm25_path_counter(stores):
+    """``archi_bm25_scored_queries_total`` counts a micro-batch's queries
+    under ``batch`` and a direct hybrid search's under ``single``."""
+    from archi_tpu_torch.utils.metrics import METRICS
+
+    _js, ts = stores
+
+    def count(path):
+        return METRICS.counter_value("archi_bm25_scored_queries_total",
+                                     {"path": path})
+
+    batch, single = count("batch"), count("single")
+    ts.hybrid_search_batch(QUERIES, k=3)
+    assert (count("batch"), count("single")) == (batch + len(QUERIES), single)
+    assert ts._batcher is None     # micro-batching off: the direct path
+    ts.hybrid_search(QUERIES[0], k=3)
+    assert (count("batch"), count("single")) == \
+        (batch + len(QUERIES), single + 1)
+
+
 @pytest.mark.parametrize("kw", [{}, {"filter": {"source": "a"}},
                                 {"enabled_ids": {"h1"}}])
 def test_lexical_only(stores, kw):
