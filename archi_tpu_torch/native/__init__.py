@@ -1,10 +1,11 @@
 """Native (C++) text analysis: build + ctypes bindings.
 
-Counterpart of ``archi_tpu/native/__init__.py``.  ``text_analyzer.cc`` (a
-byte-for-byte copy of the JAX package's) holds the BM25 analyzer
-(``ta_analyze``) and the WordPiece encoder (``wp_create`` / ``wp_encode`` /
-``wp_free``), the per-document loops of ingest.  It is compiled at first use
-with ``g++ -O3 -shared -fPIC -std=c++17`` into
+Counterpart of ``archi_tpu/native/__init__.py``.  ``text_analyzer.cc``
+holds the BM25 analyzer (``ta_analyze``, the JAX package's), its batched
+form for ingest, which returns term ids from a table of its own (``ti_*``,
+``NativeTermIds``), and the WordPiece encoder (``wp_create`` /
+``wp_encode`` / ``wp_free``), the per-document loops of ingest.  It is
+compiled at first use with ``g++ -O3 -shared -fPIC -std=c++17`` into
 ``archi_tpu_torch/_build/libtext_analyzer.so`` (never at import, never
 beside the source), and rebuilt when the source is newer than the library.
 If the build or the load fails (no toolchain), ``load_library`` returns None
@@ -15,11 +16,14 @@ one implementation.
 
 ``ROUTES`` counts which path each ``analyze`` and ``encode`` call took
 (``"analyze:native"``, ``"analyze:python"``, ``"encode:native"``,
-``"encode:python"``), so a run can show that its ASCII documents went
-through the library; ``use_native(False)`` sends every call to the Python
-route, to measure one route against the other.  The entry points keep no state between calls besides
-the read-only vocabulary of a ``NativeWordPiece``, so threads may call them
-at once; ctypes releases the GIL for the duration of each call.
+``"encode:python"``) and the texts a ``NativeTermIds`` analysed
+(``"analyze:native_batch"``), so a run can show that its ASCII documents
+went through the library; ``use_native(False)`` sends every call to the
+Python route, to measure one route against the other.  The entry points keep
+no state between calls besides the read-only vocabulary of a
+``NativeWordPiece`` and the table of a ``NativeTermIds`` (which its owner
+mutates under its own lock), so threads may call them at once; ctypes
+releases the GIL for the duration of each call.
 """
 
 from __future__ import annotations
@@ -30,7 +34,9 @@ import os
 import shutil
 import subprocess
 import threading
-from typing import Optional
+from typing import Optional, Sequence
+
+import numpy as np
 
 logger = logging.getLogger(__name__)
 
@@ -44,14 +50,15 @@ _lib: Optional[ctypes.CDLL] = None
 _tried = False
 
 ROUTES: dict[str, int] = {"analyze:native": 0, "analyze:python": 0,
+                          "analyze:native_batch": 0,
                           "encode:native": 0, "encode:python": 0}
 _routes_lock = threading.Lock()
 _native_on = True
 
 
-def count_route(route: str) -> None:
+def count_route(route: str, n: int = 1) -> None:
     with _routes_lock:
-        ROUTES[route] += 1
+        ROUTES[route] += n
 
 
 def reset_routes() -> None:
@@ -111,6 +118,21 @@ def load_library() -> Optional[ctypes.CDLL]:
         lib.ta_analyze.restype = ctypes.c_int
         lib.ta_analyze.argtypes = [ctypes.c_char_p, ctypes.c_int,
                                    ctypes.c_char_p, ctypes.c_int]
+        lib.ti_create.restype = ctypes.c_void_p
+        lib.ti_create.argtypes = []
+        lib.ti_free.restype = None
+        lib.ti_free.argtypes = [ctypes.c_void_p]
+        lib.ti_push.restype = ctypes.c_int
+        lib.ti_push.argtypes = [ctypes.c_void_p, ctypes.c_char_p,
+                                ctypes.c_void_p, ctypes.c_int]
+        lib.ti_analyze.restype = ctypes.c_longlong
+        lib.ti_analyze.argtypes = [
+            ctypes.c_void_p, ctypes.c_char_p, ctypes.c_longlong,
+            ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
+            ctypes.POINTER(ctypes.c_longlong)]
+        lib.ti_take.restype = None
+        lib.ti_take.argtypes = [ctypes.c_void_p, ctypes.c_void_p,
+                                ctypes.c_void_p]
         lib.wp_create.restype = ctypes.c_void_p
         lib.wp_create.argtypes = [ctypes.c_char_p]
         lib.wp_free.argtypes = [ctypes.c_void_p]
@@ -171,7 +193,7 @@ _DROPPED = {0x00: "", 0x7F: ""}
 _TRANSLIT.update(_DROPPED)
 
 
-def _ascii_for_native(text: str) -> Optional[str]:
+def prepare_for_native(text: str) -> Optional[str]:
     """The text as the C++ analyzer may take it, or None when it holds
     characters only the Python path handles."""
     if is_ascii(text):
@@ -182,12 +204,73 @@ def _ascii_for_native(text: str) -> Optional[str]:
     return text if is_ascii(text) else None
 
 
+def native_enabled() -> bool:
+    """Whether the native route serves: on, and the library loads."""
+    return _native_on and load_library() is not None
+
+
+class NativeTermIds:
+    """A table of term ids (term → id, dense from 0) in the native library,
+    and the batched analysis that maps texts straight to ids.
+
+    Its owner keeps it equal to its own table: terms it interns elsewhere
+    (the Python route) are ``push``-ed in id order before the next
+    ``analyze``.  Not safe for two threads at once."""
+
+    def __init__(self):
+        lib = load_library()
+        if lib is None:
+            raise RuntimeError("native library unavailable")
+        self._lib = lib
+        self._handle = lib.ti_create()
+        self.size = 0
+
+    def push(self, terms: Sequence[str]) -> None:
+        """Append terms the table lacks, with the next ids."""
+        if not terms:
+            return
+        raw = [t.encode("utf-8") for t in terms]
+        lens = np.fromiter(map(len, raw), np.int32, len(raw))
+        size = self._lib.ti_push(self._handle, b"".join(raw),
+                                 lens.ctypes.data, len(raw))
+        if size != self.size + len(raw):
+            raise RuntimeError("native term table out of step with its owner")
+        self.size = size
+
+    def analyze(self, texts: Sequence[str], *, stemming: bool = False):
+        """ASCII texts (``prepare_for_native``'s) → (ids int32 [T] of every
+        text's terms in order, counts int32 [n] of terms a text, the terms
+        new to the table in id order)."""
+        counts = np.empty(len(texts), np.int32)
+        if not texts:
+            return np.empty(0, np.int32), counts, []
+        blob = "\0".join(texts).encode("ascii")
+        fresh_len = ctypes.c_longlong()
+        n_ids = self._lib.ti_analyze(self._handle, blob, len(blob),
+                                     len(texts), 1 if stemming else 0,
+                                     counts.ctypes.data,
+                                     ctypes.byref(fresh_len))
+        ids = np.empty(n_ids, np.int32)
+        fresh = np.empty(fresh_len.value, np.uint8)
+        self._lib.ti_take(self._handle, ids.ctypes.data, fresh.ctypes.data)
+        new = fresh.tobytes().decode("ascii").split("\x01") if len(fresh) \
+            else []
+        self.size += len(new)
+        count_route("analyze:native_batch", len(texts))
+        return ids, counts, new
+
+    def __del__(self):
+        handle = getattr(self, "_handle", None)
+        if handle:
+            self._lib.ti_free(handle)
+
+
 def native_analyze(text: str, *, stemming: bool = False) -> Optional[list[str]]:
     """BM25 term analysis via C++; None → caller uses the Python path."""
     lib = load_library() if _native_on else None
     if lib is None:
         return None
-    text = _ascii_for_native(text)
+    text = prepare_for_native(text)
     if text is None:
         return None
     raw = text.encode("ascii")

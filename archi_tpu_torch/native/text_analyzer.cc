@@ -13,8 +13,15 @@
 // tests.  Texts containing non-ASCII bytes are routed to the Python path by
 // the caller, so Unicode normalization stays in one place.
 //
+// ti_* is the ingest form of the analyzer: a table of term ids (term → id,
+// ids dense from 0 in the order terms were first seen) and one call that
+// analyses a batch of texts into the flat ids of their terms, so a batch
+// crosses into Python as integers and only the terms new to the table come
+// back as text.
+//
 // Build: g++ -O3 -shared -fPIC text_analyzer.cc -o libtext_analyzer.so
 
+#include <cstdint>
 #include <cstring>
 #include <string>
 #include <unordered_map>
@@ -218,21 +225,189 @@ std::string porter_stem(std::string w) {
   return w;
 }
 
-bool all_alnum(const std::string& s) {
-  for (char c : s)
-    if (!((c >= 'a' && c <= 'z') || (c >= '0' && c <= '9'))) return false;
-  return true;
+// Character classes of basic tokenize: control characters but \t \n \r
+// are dropped; whitespace and punctuation end a token (a punctuation token
+// is one character, never a term); letters are lowercased; anything else
+// (DEL, bytes >= 128) stays in the token and keeps it from being a term.
+enum : unsigned char { kDrop, kSplit, kDigit, kAlpha, kOther };
+
+struct CharClass {
+  unsigned char cls[256];
+  char lower[256];
+  CharClass() {
+    for (int c = 0; c < 256; ++c) {
+      char ch = static_cast<char>(c);
+      lower[c] = ch;
+      if (c < 32 && c != '\t' && c != '\n' && c != '\r') {
+        cls[c] = kDrop;
+      } else if (c == ' ' || c == '\t' || c == '\n' || c == '\r' ||
+                 is_punct(ch)) {
+        cls[c] = kSplit;
+      } else if (c >= '0' && c <= '9') {
+        cls[c] = kDigit;
+      } else if ((c >= 'a' && c <= 'z') || (c >= 'A' && c <= 'Z')) {
+        cls[c] = kAlpha;
+        if (c <= 'Z') lower[c] = static_cast<char>(c - 'A' + 'a');
+      } else {
+        cls[c] = kOther;
+      }
+    }
+  }
+};
+
+const CharClass& char_class() {
+  static const CharClass k;
+  return k;
 }
 
-bool all_digit(const std::string& s) {
-  for (char c : s)
-    if (!(c >= '0' && c <= '9')) return false;
-  return true;
+// the n <= 8 bytes at p as one little-endian integer
+inline uint64_t pack(const char* p, size_t n) {
+  uint64_t w = 0;
+  for (size_t i = 0; i < n; ++i)
+    w |= static_cast<uint64_t>(static_cast<unsigned char>(p[i])) << (8 * i);
+  return w;
 }
+
+// stopwords() of two to five letters, packed into integers by length
+struct StopTable {
+  std::vector<uint64_t> by_len[6];
+  StopTable() {
+    for (const auto& w : stopwords())
+      if (w.size() < 6) by_len[w.size()].push_back(pack(w.data(), w.size()));
+  }
+};
+
+inline bool is_stopword(const char* p, size_t n) {
+  static const StopTable t;
+  if (n > 5) return false;
+  uint64_t w = pack(p, n);
+  for (uint64_t s : t.by_len[n])
+    if (s == w) return true;
+  return false;
+}
+
+// The BM25 terms of the text [p, end), in order, to emit(data, size):
+// basic tokenize; drop one-character tokens, digits only, anything not
+// alphanumeric and stopwords; Porter when stem != 0.
+template <class Emit>
+void for_each_term(const char* p, const char* end, int stem, Emit&& emit) {
+  const CharClass& cc = char_class();
+  std::string cur;
+  bool digits = true, alnum = true;
+  auto flush = [&]() {
+    size_t n = cur.size();
+    if (n > 1 && !digits && alnum && !is_stopword(cur.data(), n)) {
+      if (stem) {
+        std::string term = porter_stem(cur);
+        emit(term.data(), term.size());
+      } else {
+        emit(cur.data(), n);
+      }
+    }
+    cur.clear();
+    digits = alnum = true;
+  };
+  for (; p < end; ++p) {
+    unsigned char c = static_cast<unsigned char>(*p);
+    switch (cc.cls[c]) {
+      case kDrop:
+        break;
+      case kSplit:
+        if (!cur.empty()) flush();
+        break;
+      case kDigit:
+        cur.push_back(static_cast<char>(c));
+        break;
+      case kAlpha:
+        cur.push_back(cc.lower[c]);
+        digits = false;
+        break;
+      default:
+        cur.push_back(static_cast<char>(c));
+        digits = alnum = false;
+    }
+  }
+  if (!cur.empty()) flush();
+}
+
+// Term → id, ids dense from 0 in the order terms were added: open
+// addressing over slots that hold a term's first 8 bytes, its length and
+// its id, so most lookups read one slot; the terms' bytes in one arena.
+class TermTable {
+ public:
+  size_t size() const { return starts_.size() - 1; }
+
+  // The term's id; a new term takes the next id and sets *added.
+  int intern(const char* p, size_t n, bool* added) {
+    if (2 * (size() + 1) > slots_.size()) grow();
+    uint64_t head = pack(p, n < 8 ? n : 8);
+    size_t mask = slots_.size() - 1;
+    for (size_t i = hash(head, p, n) & mask;; i = (i + 1) & mask) {
+      Slot& s = slots_[i];
+      if (s.id1 == 0) {
+        s = Slot{head, static_cast<uint32_t>(n),
+                 static_cast<uint32_t>(size() + 1)};
+        arena_.append(p, n);
+        starts_.push_back(arena_.size());
+        *added = true;
+        return static_cast<int>(s.id1 - 1);
+      }
+      if (s.head == head && s.len == n &&
+          (n <= 8 || std::memcmp(arena_.data() + starts_[s.id1 - 1] + 8,
+                                 p + 8, n - 8) == 0)) {
+        *added = false;
+        return static_cast<int>(s.id1 - 1);
+      }
+    }
+  }
+
+ private:
+  struct Slot {
+    uint64_t head;  // the first 8 bytes, packed
+    uint32_t len;
+    uint32_t id1;   // id + 1; 0: empty
+  };
+
+  static uint64_t hash(uint64_t head, const char* p, size_t n) {
+    const uint64_t k = 0x9FB21C651E98DF25ull;
+    uint64_t h = (head ^ (n * 0x9E3779B97F4A7C15ull)) * k;
+    for (size_t i = 8; i < n; i += 8) {
+      h ^= h >> 29;
+      h = (h ^ pack(p + i, n - i < 8 ? n - i : 8)) * k;
+    }
+    h ^= h >> 32;
+    h *= k;
+    return h ^ (h >> 29);
+  }
+
+  void grow() {
+    std::vector<Slot> slots(slots_.empty() ? 1024 : 2 * slots_.size(),
+                            Slot{0, 0, 0});
+    size_t mask = slots.size() - 1;
+    for (const Slot& s : slots_) {
+      if (s.id1 == 0) continue;
+      const char* p = arena_.data() + starts_[s.id1 - 1];
+      size_t i = hash(s.head, p, s.len) & mask;
+      while (slots[i].id1) i = (i + 1) & mask;
+      slots[i] = s;
+    }
+    slots_.swap(slots);
+  }
+
+  std::vector<Slot> slots_;
+  std::vector<size_t> starts_{0};  // by id: where its bytes start in arena_
+  std::string arena_;
+};
 
 struct WordPiece {
   std::unordered_map<std::string, int> vocab;
   int max_chars_per_word = 200;
+};
+
+struct TermIds {
+  TermTable ids;
+  std::vector<int> out;   // ids of the last ti_analyze, until ti_take
+  std::string fresh;      // its terms new to the table, '\x01'-joined
 };
 
 }  // namespace
@@ -243,18 +418,72 @@ extern "C" {
 // (excluding NUL) or -1 if out too small.  stem != 0 applies Porter.
 int ta_analyze(const char* text, int stem, char* out, int cap) {
   std::string result;
-  for (auto& tok : basic_tokenize(text)) {
-    if (tok.size() <= 1) continue;
-    if (all_digit(tok)) continue;
-    if (!all_alnum(tok)) continue;
-    if (stopwords().count(tok)) continue;
-    std::string term = stem ? porter_stem(tok) : tok;
-    if (!result.empty()) result += '\x01';
-    result += term;
-  }
+  for_each_term(text, text + std::strlen(text), stem,
+                [&](const char* term, size_t n) {
+                  if (!result.empty()) result += '\x01';
+                  result.append(term, n);
+                });
   if (static_cast<int>(result.size()) + 1 > cap) return -1;
   std::memcpy(out, result.c_str(), result.size() + 1);
   return static_cast<int>(result.size());
+}
+
+void* ti_create() { return new TermIds(); }
+
+void ti_free(void* h) { delete static_cast<TermIds*>(h); }
+
+// Append n terms (lens[i] bytes each, packed in blob) with the next ids;
+// returns the table's new size, or -1 (table unchanged past the terms
+// before it) when a term is already there.
+int ti_push(void* h, const char* blob, const int* lens, int n) {
+  auto* t = static_cast<TermIds*>(h);
+  bool added;
+  for (int i = 0; i < n; ++i) {
+    t->ids.intern(blob, lens[i], &added);
+    if (!added) return -1;
+    blob += lens[i];
+  }
+  return static_cast<int>(t->ids.size());
+}
+
+// Analyse n NUL-separated ASCII texts in [texts, texts + len): counts[i]
+// gets the number of terms of text i, and each term an id (new terms the
+// next ids, in the order they occur).  Returns the number of ids and sets
+// *fresh_len to the bytes of the new terms, '\x01'-joined; ti_take copies
+// both out.
+long long ti_analyze(void* h, const char* texts, long long len, int n,
+                     int stem, int* counts, long long* fresh_len) {
+  auto* t = static_cast<TermIds*>(h);
+  t->out.clear();
+  t->fresh.clear();
+  const char* p = texts;
+  const char* end = texts + len;
+  for (int i = 0; i < n; ++i) {
+    const char* stop = static_cast<const char*>(std::memchr(p, 0, end - p));
+    if (stop == nullptr) stop = end;
+    size_t before = t->out.size();
+    for_each_term(p, stop, stem, [&](const char* term, size_t len) {
+      bool added;
+      t->out.push_back(t->ids.intern(term, len, &added));
+      if (added) {
+        if (!t->fresh.empty()) t->fresh += '\x01';
+        t->fresh.append(term, len);
+      }
+    });
+    counts[i] = static_cast<int>(t->out.size() - before);
+    p = stop < end ? stop + 1 : end;
+  }
+  *fresh_len = static_cast<long long>(t->fresh.size());
+  return static_cast<long long>(t->out.size());
+}
+
+// Copy the last ti_analyze's ids and new terms out, and let them go.
+void ti_take(void* h, int* ids, char* fresh) {
+  auto* t = static_cast<TermIds*>(h);
+  std::memcpy(ids, t->out.data(), t->out.size() * sizeof(int));
+  std::memcpy(fresh, t->fresh.data(), t->fresh.size());
+  std::vector<int>().swap(t->out);
+  std::string().swap(t->fresh);
 }
 
 // vocab_lines: '\n'-separated vocabulary, id = line index.

@@ -11,7 +11,11 @@ the CPU (wall less CPU) and its self time (wall less the wall of its child
 spans), in milliseconds; the ``wait`` spans are marked.  In a traced run
 (``--trace 1``) it also reads the benchmark's own spans over the same
 slice.  Without a profiler (``--trace 0`` with ``ARCHI_TRACE=1``) it
-reads the last 10 s of micro-batches the ring holds.
+reads the last 10 s of micro-batches the ring holds.  Under
+``ARCHI_TRACE=1`` it also totals, under ``setup``, the spans that ended
+before that slice (the store's fill: ``bm25.add`` and the first
+``bm25.build``, with their attributes summed); give such a run a short
+``--seconds``, or the window's spans push the set-up's out of the ring.
 
 Usage (on the card, from the root of the repository):
 
@@ -53,6 +57,21 @@ def breakdown(spans: list) -> dict:
                      "self_ms_per_batch": r["self"] / per,
                      "mean_wall_ms": r["wall"] / r["count"] / 1e6}
     return {"batches": batches, "spans": out}
+
+
+def setup_totals(spans: list) -> dict:
+    """Count, wall and thread-CPU seconds, and summed numeric attributes
+    of each span name."""
+    out = {}
+    for s in spans:
+        r = out.setdefault(s.name, {"count": 0, "wall_s": 0.0, "cpu_s": 0.0})
+        r["count"] += 1
+        r["wall_s"] += s.wall_ns / 1e9
+        r["cpu_s"] += (s.cpu_ns or 0) / 1e9
+        for k, v in s.attrs.items():
+            if isinstance(v, int) and not isinstance(v, bool):
+                r[k] = r.get(k, 0) + v
+    return dict(sorted(out.items(), key=lambda kv: -kv[1]["wall_s"]))
 
 
 def harness_in(tracer, t0: float, t1: float, batches: int) -> dict:
@@ -97,7 +116,8 @@ def main(argv: list[str]) -> int:
         t0 = t1 - 10.0
         source = "the last 10 s of batches"
     table = breakdown(tracing.spans(t0, t1))
-    table.update(source=source, seconds=t1 - t0, dropped=tracing.dropped())
+    table.update(source=source, seconds=t1 - t0, dropped=tracing.dropped(),
+                 setup=setup_totals(tracing.spans(None, t0)))
     if tracer is not None and tracer.enabled:
         table["harness"] = harness_in(tracer, t0, t1, table["batches"])
     with open(out_path, "w") as f:

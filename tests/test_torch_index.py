@@ -247,19 +247,54 @@ def _fill_then_remove(idx, texts):
     idx.remove([0, 5])
 
 
-#: (corpus, how it is filled, queries, n_pad): empty, unknown and repeated
-#: terms; postings longer than two pieces; deltas; removes; one query; a
-#: n_pad below the rows, whose postings are dropped
+def _fill_then_upsert(idx, texts):
+    """Rows 2 and 5 added again (5 twice in one batch) before the first
+    query: a row's old terms stay, its counts and length are the last
+    text's, as the JAX package's dicts keep them."""
+    _fill_at_once(idx, texts)
+    idx.add([2, 5, 5], ["fox fox retrieval upserted", "dense fox",
+                        "lazy lazy hounds dense"])
+
+
+#: native-route texts around texts only the Python route takes: non-Latin
+#: scripts, an empty text, one of stopwords only, a Latin one transliterated
+MIXED_ROUTES = CORPUS[:3] + [
+    "日本語のテキスト fox", "", "the and of to it", "Привет мир brown fox",
+    "Ångström über straße dog", "café naïve fox"] + CORPUS[3:]
+
+
+def _flush_corpus():
+    """One more document than delta flushes before a full rebuild."""
+    return [f"fox doc{i} common w{i % 5}" for i in
+            range(tbm25.REBUILD_FLUSHES + 2)]
+
+
+#: (corpus, how it is filled, queries, n_pad, stemming): empty, unknown and
+#: repeated terms; postings longer than two pieces; deltas, past the
+#: rebuild after ``REBUILD_FLUSHES``; removes; upserts; batches mixing the
+#: native and Python routes; stemming; one query; a n_pad below the rows,
+#: whose postings are dropped
 BATCH_CASES = {
     "mixed": (CORPUS, _fill_at_once,
-              QUERIES + ["", "fox fox brown fox", "zzz qqq"], 16),
+              QUERIES + ["", "fox fox brown fox", "zzz qqq"], 16, False),
     "long_postings": (_long_corpus(), _fill_at_once,
                       ["common word3", "word1", "zzz", "common"],
-                      tbm25.CHUNK * 2 + 40),
-    "after_flushes": (CORPUS, _fill_with_flushes, QUERIES, 16),
-    "after_remove": (CORPUS, _fill_then_remove, QUERIES, 16),
-    "one_query": (CORPUS, _fill_at_once, ["lazy dog sleeps"], 16),
-    "rows_dropped": (CORPUS, _fill_at_once, QUERIES, 5),
+                      tbm25.CHUNK * 2 + 40, False),
+    "after_flushes": (CORPUS, _fill_with_flushes, QUERIES, 16, False),
+    "after_remove": (CORPUS, _fill_then_remove, QUERIES, 16, False),
+    "one_query": (CORPUS, _fill_at_once, ["lazy dog sleeps"], 16, False),
+    "rows_dropped": (CORPUS, _fill_at_once, QUERIES, 5, False),
+    "upsert": (CORPUS, _fill_then_upsert,
+               QUERIES + ["upserted", "hounds"], 16, False),
+    "mixed_routes": (MIXED_ROUTES, _fill_at_once,
+                     QUERIES + ["日本語のテキスト", "привет fox", "straße",
+                                "ångström", "naive"], 16, False),
+    "stemming": (CORPUS + ["Running runners ran; jumping jumps"],
+                 _fill_at_once,
+                 QUERIES + ["running jump", "leaping", "combining"], 16,
+                 True),
+    "rebuild_flushes": (_flush_corpus(), _fill_with_flushes,
+                        ["common w3", "doc7 doc65", "fox"], 128, False),
 }
 
 
@@ -268,10 +303,12 @@ def test_bm25_scores_batch_rows_match_jax(case):
     """Each row of one batched pass equals the JAX package's scores of its
     query; ``hit`` is "the row's best score is above 0"; the padding rows
     are zero."""
-    texts, fill, queries, n_pad = BATCH_CASES[case]
-    jidx, tidx = _bm25_pair()
+    texts, fill, queries, n_pad, stemming = BATCH_CASES[case]
+    jidx, tidx = _bm25_pair(stemming)
     fill(jidx, texts)
     fill(tidx, texts)
+    if case == "rebuild_flushes":
+        assert tidx.full_builds == 2
     scores, hit = tidx.scores_batch(queries, n_pad,
                                     n_rows=len(queries) + 3)
     assert scores.shape == (len(queries) + 3, n_pad)
@@ -288,6 +325,132 @@ def test_bm25_scores_batch_rows_match_jax(case):
                                    rtol=1e-6, atol=0)
     else:
         assert hit[:len(queries)].any() and not hit[len(queries):].any()
+
+
+def _snapshot_sets(idx):
+    """What a query reads, order aside: each term's (row, tf, dl) entries
+    as a set and its df, and the entry and document counts."""
+    idx._ensure_built()
+    snap = idx._snap
+    rows, tf, dl = (t.numpy() for t in (snap.rows, snap.tf, snap.dl))
+    terms = {}
+    for tid, (pieces, df) in snap.terms.items():
+        entries = {(int(rows[i]), float(tf[i]), float(dl[i]))
+                   for start, length in pieces.tolist()
+                   for i in range(start, start + length)}
+        terms[tid] = (entries, df)
+    return terms, snap.nnz, snap.n_docs, snap.len_sum
+
+
+def _one_at_a_time(idx, steps):
+    for rows, texts in steps:
+        for row, text in zip(rows, texts):
+            idx.add([row], [text])
+            idx.scores("fox", 16)
+
+
+#: (add, remove) steps: batches of (rows, texts); "remove" removes rows
+SNAPSHOT_STEPS = {
+    "fill": [(list(range(len(MIXED_ROUTES))), MIXED_ROUTES)],
+    "upsert": [(list(range(len(CORPUS))), CORPUS),
+               ([3, 6], ["dense fox upserted", "hounds hounds"])],
+    "remove": [(list(range(len(CORPUS))), CORPUS), "remove",
+               ([9, 2], ["brown dog returns", "fox"])],
+}
+
+
+@pytest.mark.parametrize("case", sorted(SNAPSHOT_STEPS))
+def test_bm25_batch_snapshot_equals_one_text_at_a_time(case):
+    """A batched fill (one add a step, a full build) and a fill one text
+    at a time with a delta flush after each publish the same entries:
+    per term the same (row, tf, dl) and df, and the same counts."""
+    batched = tbm25.BM25Index(device="cpu")
+    single = tbm25.BM25Index(device="cpu")
+    for step in SNAPSHOT_STEPS[case]:
+        if step == "remove":
+            for idx in (batched, single):
+                idx.remove([0, 5])
+            continue
+        batched.add(*step)
+        batched.scores("fox", 16)
+        _one_at_a_time(single, [step])
+    assert single.delta_flushes > 0
+    assert batched._term_ids == single._term_ids
+    assert _snapshot_sets(batched) == _snapshot_sets(single)
+
+
+def _ingest_rounds_view(idx, rows, texts):
+    """What the held ingest cell's harness reads of the index
+    (``ragbench/traffic/ingest_rounds.py``): every term's count in each
+    row, and each row's length."""
+    out = {}
+    for row in rows:
+        tf = {}
+        for t in {t for text in texts for t in tbm25.analyze(text)}:
+            tid = idx._term_ids.get(t)
+            f = idx._postings[tid].get(row) if tid is not None else None
+            if f is not None:
+                tf[t] = f
+        out[row] = (idx._doc_len.get(row), tf)
+    return out
+
+
+def test_bm25_postings_reads_match_jax_and_save_round_trips(tmp_path):
+    """``_postings[tid].get(row)``, ``len(_postings[tid])`` and
+    ``_doc_len.get(row)`` read what the JAX package's dicts hold, through
+    adds, an upsert and a remove; ``save`` writes its bytes, and ``load``
+    then ``save`` writes them again."""
+    jidx, tidx = _bm25_pair()
+    texts = MIXED_ROUTES + ["fox fox upserted", "common words"]
+    # rows out of order: a term's rows, and the documents, save in the
+    # order they were added
+    rows = list(range(len(MIXED_ROUTES)))[::-1] + [4, 40]
+    for idx in (jidx, tidx):
+        idx.add(rows[:6], texts[:6])
+        idx.scores("fox", 64)
+        idx.add(rows[6:], texts[6:])
+        idx.remove([1, 7])
+    probe = sorted(set(rows)) + [1, 7, 99]
+    assert _ingest_rounds_view(tidx, probe, texts) == \
+        _ingest_rounds_view(jidx, probe, texts)
+    assert [len(tidx._postings[t]) for t in range(tidx.n_terms)] == \
+        [len(p) for p in jidx._postings]
+    assert len(tidx._doc_len) == len(jidx._doc_len) == tidx.n_docs
+    jidx.save(str(tmp_path / "jax.json"))
+    tidx.save(str(tmp_path / "torch.json"))
+    saved = (tmp_path / "torch.json").read_bytes()
+    assert saved == (tmp_path / "jax.json").read_bytes()
+    tbm25.BM25Index.load(str(tmp_path / "torch.json"), device="cpu").save(
+        str(tmp_path / "again.json"))
+    assert (tmp_path / "again.json").read_bytes() == saved
+
+
+@pytest.mark.parametrize("row", [-1, 2 ** 31])
+def test_bm25_rows_outside_the_device_buffers_are_refused(row):
+    """Rows index int32 device buffers: one outside [0, 2**31) is refused
+    before the batch changes anything."""
+    idx = tbm25.BM25Index(device="cpu")
+    with pytest.raises(ValueError, match="rows"):
+        idx.add([0, row], ["fox", "dog"])
+    assert idx.n_terms == 0 and idx.n_docs == 0
+
+
+@pytest.mark.parametrize("native_on", [True, False])
+def test_bm25_empty_batch_changes_nothing(native_on):
+    """An add of no texts, on either analysis route, leaves the index and
+    its scores as they were."""
+    from archi_tpu_torch import native
+    idx = tbm25.BM25Index(device="cpu")
+    idx.add([0, 1], ["fox dog", "brown fox"])
+    want = idx.scores("fox", 8)
+    previous = native.use_native(native_on)
+    try:
+        idx.add([], [])
+        idx.add_analyzed([], [])
+    finally:
+        native.use_native(previous)
+    assert (idx.n_docs, idx.n_terms) == (2, 3)
+    assert torch.equal(idx.scores("fox", 8), want)
 
 
 def test_bm25_scores_is_the_batch_of_one():

@@ -17,13 +17,14 @@ import threading
 
 import numpy as np
 import pytest
+import torch
 from hypothesis import given, settings
 from hypothesis import strategies as st
 
 from archi_tpu.engine.bm25 import analyze as jax_analyze
 from archi_tpu.models.tokenizer import WordPieceTokenizer as JaxTokenizer
 from archi_tpu_torch import native
-from archi_tpu_torch.engine.bm25 import STOPWORDS, analyze
+from archi_tpu_torch.engine.bm25 import STOPWORDS, BM25Index, analyze
 from archi_tpu_torch.models.tokenizer import WordPieceTokenizer
 
 
@@ -155,6 +156,7 @@ def test_routes_are_counted(tokenizers):
     assert native.ROUTES == {
         "analyze:native": len(ASCII + LATIN),
         "analyze:python": len(NON_LATIN),
+        "analyze:native_batch": 0,
         "encode:native": len(ASCII),
         "encode:python": len(LATIN + NON_LATIN)}
     analyze("plain words", stopwords=frozenset({"plain"}))
@@ -188,6 +190,78 @@ def test_random_ascii_encode_matches_jax(tokenizers, text, max_length):
     assert got == python.encode(text, max_length)
 
 
+def _terms_of(ids, counts, vocab):
+    ends = np.cumsum(counts)
+    return [[vocab[i] for i in ids[end - n:end]]
+            for n, end in zip(counts, ends)]
+
+
+@settings(max_examples=60, deadline=None)
+@given(texts=st.lists(ASCII_TEXT, max_size=6), stemming=st.booleans())
+def test_batched_analyzer_gives_the_terms_of_analyze_as_ids(texts, stemming):
+    """``NativeTermIds.analyze`` of a batch gives, text by text, the ids
+    of the terms ``analyze`` gives; terms pushed before keep their ids, new
+    ones take the next ids in the order they occur; the batch's texts are
+    counted on the ``analyze:native_batch`` route."""
+    table = native.NativeTermIds()
+    pushed = ["quota", "jobs"]
+    table.push(pushed)
+    before = dict(native.ROUTES)
+    ids, counts, new = table.analyze(
+        [native.prepare_for_native(t) for t in texts], stemming=stemming)
+    assert native.ROUTES["analyze:native_batch"] == \
+        before["analyze:native_batch"] + len(texts)
+    assert native.ROUTES["analyze:native"] == before["analyze:native"]
+    want = [analyze(t, stemming=stemming) for t in texts]
+    assert _terms_of(ids, counts, pushed + new) == want
+    assert new == list(dict.fromkeys(
+        t for terms in want for t in terms if t not in pushed))
+    assert table.size == len(pushed) + len(new)
+
+
+@pytest.mark.parametrize("route", ["use_native_false", "no_compiler"])
+def test_python_route_builds_the_same_index(route, monkeypatch, tmp_path):
+    """An index filled in batches that mix both routes, and the same index
+    filled through the Python route alone, save the same bytes (terms,
+    ids, postings, lengths) and score alike."""
+    texts = ALL + CORPUS
+    rows = list(range(len(texts)))
+    queries = ["quick fox", "café", "日本語のテキスト", "jobs queue"]
+
+    def fill(name):
+        idx = BM25Index(device="cpu")
+        idx.add(rows[:9], texts[:9])
+        idx.add(rows[9:], texts[9:])
+        idx.save(str(tmp_path / name))
+        return [idx.scores(q, 32) for q in queries]
+
+    native.reset_routes()
+    want = fill("native.json")
+    assert native.ROUTES["analyze:native_batch"] == len(ASCII + LATIN + CORPUS)
+    # the texts and one query only the Python route takes
+    assert native.ROUTES["analyze:python"] == len(NON_LATIN) + 1
+    native.reset_routes()
+    if route == "use_native_false":
+        previous = native.use_native(False)
+        try:
+            got = fill("python.json")
+        finally:
+            native.use_native(previous)
+    else:
+        monkeypatch.setattr(native, "BUILD_DIR", str(tmp_path / "build"))
+        monkeypatch.setattr(native, "_lib", None)
+        monkeypatch.setattr(native, "_tried", False)
+        monkeypatch.setenv("PATH", str(tmp_path))
+        got = fill("python.json")
+        assert native.load_library() is None
+    assert native.ROUTES["analyze:native_batch"] == 0
+    assert native.ROUTES["analyze:python"] == len(texts) + len(queries)
+    assert (tmp_path / "python.json").read_bytes() == \
+        (tmp_path / "native.json").read_bytes()
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+
+
 @pytest.mark.parametrize("text", ["ab\x7fcd quota", "ab\x00cd quota",
                                   "\x00 leading nul", "tail del\x7f"])
 def test_nul_and_del_are_dropped_as_the_python_route_drops_them(
@@ -219,6 +293,7 @@ def test_use_native_sends_every_call_to_the_python_route(tokenizers):
         assert native.use_native(True) is False
     assert got == want
     assert native.ROUTES == {"analyze:native": 0, "analyze:python": len(ALL),
+                             "analyze:native_batch": 0,
                              "encode:native": 0, "encode:python": len(ALL)}
 
 

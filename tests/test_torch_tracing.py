@@ -12,6 +12,8 @@ spans of its query path, on the CPU.
   path, with its ``wait`` spans; under a profiler the spans are ``archi.*``
   annotations of the Chrome trace with the recorder's durations.
 - A full ring counts what it drops.
+- BM25's ingest spans: ``bm25.add`` a batch and ``bm25.build`` a full
+  build, with their counts, totalled by ``torch_span_breakdown``.
 """
 
 import json
@@ -352,3 +354,34 @@ def test_full_ring_counts_its_drops(monkeypatch):
     assert [s.name for s in tracing.spans()] == ["s6", "s7", "s8", "s9"]
     tracing.clear()
     assert tracing.dropped() == 0 and tracing.spans() == []
+
+
+def test_bm25_ingest_spans():
+    """An add is one ``bm25.add`` span with its texts, their terms
+    (``tokens``) and the (term, row) entries it made; the first query's
+    full build is one ``bm25.build`` span, inside ``bm25.scores``, with the
+    entries it published; ``torch_span_breakdown`` totals both."""
+    from archi_tpu_torch.engine.bm25 import BM25Index
+    from scripts.torch_span_breakdown import setup_totals
+
+    idx = BM25Index(device="cpu")
+    tracing.enable()
+    idx.add([0, 1], ["gpu kernel gpu", "tensor index and the"])
+    idx.add_analyzed([2], [["gpu", "search"]])
+    idx.scores("gpu", 8)
+    tracing.enable(False)
+    recs = tracing.spans()
+    by_id = {s.id: s for s in recs}
+    adds = [s for s in recs if s.name == "bm25.add"]
+    assert [s.attrs for s in adds] == [
+        {"texts": 2, "tokens": 5, "entries": 4},
+        {"texts": 1, "tokens": 2, "entries": 2}]
+    (build,) = [s for s in recs if s.name == "bm25.build"]
+    assert build.attrs == {"entries": 6}
+    assert by_id[build.parent].name == "bm25.scores"
+    totals = setup_totals(recs)
+    assert totals["bm25.add"]["count"] == 2
+    assert totals["bm25.add"]["entries"] == 6
+    assert totals["bm25.add"]["tokens"] == 7
+    assert totals["bm25.build"]["entries"] == 6
+    assert totals["bm25.build"]["wall_s"] > 0
